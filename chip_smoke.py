@@ -3,26 +3,34 @@
 
     python3 chip_smoke.py            # one card, no arguments
 
-Phases, each printing one JSON record per line; any failure raises and the
-script exits non-zero:
+Phases, each printing one JSON record per line with its seconds; any
+failure raises and the script exits non-zero:
 
-1. device and build: the card's name and power limit, nvcc build seconds;
+1. device and build: the card's name and power limit, nvcc build seconds
+   of the three kernel sources and their ptxas lines;
 2. kernels against their plain PyTorch versions on the card (TF32 off):
-   the log-mel kernel at N=128 (f32, atol 5e-5) and the attention kernel
-   at the serving path's four shapes in f32 (atol 2e-5) and bf16 (atol
-   1e-2) plus head_dim 64, Lq != Lk and L = 128 shapes; times of kernel,
-   plain version and library yardstick (CUDA events), and the bound;
-3. the server: the slice configuration (R2D1 MAX + ResNet18 & wavLM with
-   encoder_plus_self_attention, JMT SELF_ATTEN, 1 head, 1 layer) at full
-   width with seeded random weights, bf16, buckets (1, 8), seq 16, 112 px;
-   requests at batch 1, 3 and 8 with the launch counters read around them
-   (1 log-mel and 10 attention launches per forward), then p50/p90 latency
-   per bucket (and at bucket 8 with TF32 off), peak memory, and a
-   torch.profiler breakdown of one forward per bucket: device kernel time
-   by name and the device's idle share;
-4. card against CPU: one seq-4 request, card f32 (kernels, TF32 off)
-   against CPU f32 (plain versions), V/A max abs delta <= 1e-3; card bf16
-   against card f32.
+   log-mel at N=128 (f32, atol 5e-5); attention at the serving path's four
+   shapes in f32 (atol 2e-5) and bf16 (atol 1e-2) plus head_dim 64,
+   Lq != Lk and L = 128 shapes; the inception module (K3) at all nine
+   module specs of the I3D, 16 clips x T 8, f32 (5e-5 of max |plain|) and
+   bf16 (1e-2), then timed at 128 clips in bf16. Each with the times of
+   kernel, plain version and library yardstick (CUDA events), and the bound;
+3. the flagship server (the main path): R2D1 MAX + I3D+TCN (112 -> 224 fold)
+   with encoder_plus_self_attention, ResNet18 & wavLM with
+   encoder_plus_self_attention, JMT SELF_ATTEN, 1 head, 1 layer, at full
+   width with seeded random weights, bf16, ``i3d_fused_inception=True``,
+   buckets (1, 8), seq 16, 112 px. Requests at batch 1, 3 and 8 with the
+   launch counters set to 0 before and read after (per forward 1 log-mel,
+   12 attention, 9 inception), then p50/p90 per bucket, peak memory and a
+   torch.profiler breakdown of one forward per bucket;
+4. the same flagship with the flag off (unfused cuDNN inception): launches
+   of one bucket-8 request (no inception launch) and its p50; the device
+   time of each backbone alone at bucket 8, flag on and off;
+5. the first slice's configuration (no I3D), an earlier path: launches
+   (1 log-mel, 10 attention per forward) and p50 at buckets 1 and 8;
+6. card against CPU: the flagship, flag on, one seq-4 request, card f32
+   (kernels, TF32 off) against CPU f32 (plain versions), V/A max abs delta
+   <= 1e-3; card bf16 against card f32.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 kernels summary JSON, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -48,8 +56,18 @@ SLICE_CONFIG = dict(vision_backbones=("R2D1",),
                     audio_backbones=("ResNet18", "wavLM"),
                     intra_modal_fusion="encoder_plus_self_attention",
                     num_heads=1, num_layers=1, r2d1_reduce="MAX")
-# attention problems of one forward at bucket 8 (B=8, S=16, E=512, 1 head)
-ATTN_PATH_SHAPES = (("intra_modal", 128, 2, 2, 512, 2),
+FLAGSHIP_CONFIG = dict(SLICE_CONFIG, vision_backbones=("R2D1", "I3D"),
+                       i3d_input_size=224)
+# kernel launches per forward of each path
+PER_FORWARD = {"flagship": {"log_mel": 1, "fused_attention": 12,
+                            "inception_module_fused": 9},
+               "flagship_flag_off": {"log_mel": 1, "fused_attention": 12,
+                                     "inception_module_fused": 0},
+               "slice": {"log_mel": 1, "fused_attention": 10,
+                         "inception_module_fused": 0}}
+# attention problems of one flagship forward at bucket 8 (B=8, S=16, E=512,
+# 1 head): the visual and the audio intra-modal fusion, two each
+ATTN_PATH_SHAPES = (("intra_modal", 128, 2, 2, 512, 4),
                     ("jmt_encoders", 8, 16, 16, 512, 3),
                     ("jmt_cross_paired", 16, 16, 16, 512, 3),
                     ("self_atten_head", 128, 6, 6, 512, 2))
@@ -89,6 +107,14 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print the phase's seconds when it ends."""
+    t0 = time.perf_counter()
+    yield
+    emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
 
 
 def phase_build():
@@ -202,7 +228,8 @@ def check_attention(gen: torch.Generator) -> dict:
             "source": "jmt_tpu_torch/csrc/fused_attention.cu",
             "replaces": "jmt_tpu/ops/pallas/fused_attention.py:66",
             "dtype": "bfloat16",
-            "timing": "sum over the 10 launches of one bucket-8 forward",
+            "timing": "sum over the 12 launches of one bucket-8 flagship "
+                      "forward",
             "max_abs_err": worst[torch.float32],
             "max_abs_err_bf16": worst[torch.bfloat16],
             "ms": path["ms"], "plain_ms": path["plain_ms"],
@@ -211,10 +238,123 @@ def check_attention(gen: torch.Generator) -> dict:
                          else "operations")}
 
 
-def make_model(dtype, seed: int = 0):
+def inception_modules():
+    """(name, C, H = W, spec) of the nine modules at 112 px clips (the
+    stem fold keeps the 224 px geometry: 28, 14 and 7)."""
+    from jmt_tpu_torch.models.i3d import I3D_STAGES, module_channels
+    cin, out = 192, []
+    for name, spec in I3D_STAGES:
+        if name.startswith("Mixed"):
+            out.append((name, cin, {"3": 28, "4": 14, "5": 7}[name[6]], spec))
+            cin = module_channels(spec)
+    return out
+
+
+@torch.no_grad()
+def random_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """Running statistics and affine parameters off their identity init,
+    so that the folding is really exercised."""
+    from jmt_tpu_torch.ops.norm import TorchBatchNorm
+    for mod in model.modules():
+        if isinstance(mod, TorchBatchNorm):
+            n = mod.weight.shape[0]
+            mod.weight.copy_(1 + 0.1 * torch.randn(n, generator=gen))
+            mod.bias.copy_(0.1 * torch.randn(n, generator=gen))
+            mod.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+            mod.running_var.copy_((1 + 0.1 * torch.randn(n, generator=gen))
+                                  .abs())
+
+
+def check_inception(gen: torch.Generator) -> dict:
+    """K3 against its plain version at every module spec (16 clips, T 8):
+    f32 within 5e-5 and bf16 within 1e-2 of max |plain|; then at 128 clips
+    (bucket 8) in bf16 the times of kernel, plain version and library (the
+    port's own unfused InceptionModule: cuDNN, bf16, channels-last)."""
+    from jmt_tpu_torch.models.common import init_parameters
+    from jmt_tpu_torch.models.i3d import InceptionModule
+    from jmt_tpu_torch.ops.inception import (fold_inception_weights,
+                                             inception_plain)
+    from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
+    tol = {torch.float32: 5e-5, torch.bfloat16: 1e-2}
+    worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+             "bytes_ms": 0.0, "ops_ms": 0.0, "flops": 0.0}
+    cuda_gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, c, hw, spec in inception_modules():
+        avg = name == "Mixed_5c"
+        m = InceptionModule(c, spec, avg_tail=avg, dtype=torch.bfloat16)
+        init_parameters(m, gen)
+        random_bn(m, gen)
+        m = m.cuda().eval()
+        rec = {"name": name, "C": c, "HW": hw, "spec": list(spec),
+               "avg_tail": avg}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(16, 8, hw, hw, c, device="cuda",
+                            generator=cuda_gen).relu_().to(dtype)
+            x = x.permute(0, 4, 1, 2, 3)                 # channels-last
+            fw = fold_inception_weights(m._folded_branch, dtype)
+            got = inception_module_fused(x, fw, spec, avg_tail=avg).float()
+            want = inception_plain(x, fw, spec, avg_tail=avg).float()
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            key = "f32" if dtype == torch.float32 else "bf16"
+            rec[f"max_abs_err_{key}"], rec[f"rel_err_{key}"] = err, rel
+            worst[dtype] = [max(worst[dtype][0], err),
+                            max(worst[dtype][1], rel)]
+            if not (torch.isfinite(got).all() and rel <= tol[dtype]):
+                raise AssertionError(f"inception kernel {name} {dtype}: "
+                                     f"relative err {rel} (tol {tol[dtype]})")
+        x = torch.randn(128, 8, hw, hw, c, device="cuda",
+                        generator=cuda_gen).relu_().to(torch.bfloat16)
+        x = x.permute(0, 4, 1, 2, 3)
+        fw = fold_inception_weights(m._folded_branch, torch.bfloat16)
+        o = spec
+        flops = 2 * 128 * 8 * hw * hw * (c * (o[0] + o[1] + o[3])
+                                         + 27 * o[1] * o[2] + 27 * o[3] * o[4]
+                                         + c * o[5])
+        co = o[0] + o[2] + o[4] + o[5]
+        out_elems = 128 * (7 * co if avg else 8 * hw * hw * co)
+        n_bytes = (x.numel() + out_elems + sum(a.numel() for a in fw)) * 2
+        b_ms, b_by = bound(n_bytes, flops, BF16_PEAK_FLOPS)
+        with torch.inference_mode():
+            rec.update({
+                "ms": time_ms(lambda: inception_module_fused(
+                    x, fw, spec, avg_tail=avg), iters=10, warmup=2),
+                "plain_ms": time_ms(lambda: inception_plain(
+                    x, fw, spec, avg_tail=avg), iters=5, warmup=1),
+                "library_ms": time_ms(lambda: m(x), iters=10, warmup=2)})
+        rec.update({"clips": 128, "gflop": flops / 1e9, "bound_ms": b_ms,
+                    "bound_by": b_by,
+                    "tflops": flops / rec["ms"] / 1e9})
+        emit({"phase": "kernel", "kernel": "inception_module_fused", **rec})
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            total[key] += rec[key]
+        total["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
+        total["ops_ms"] += flops / BF16_PEAK_FLOPS * 1e3
+        total["flops"] += flops
+        del m, x, fw
+    return {"name": "inception_module_fused", "route": "cuda",
+            "source": "jmt_tpu_torch/csrc/inception.cu",
+            "replaces": "jmt_tpu/ops/inception_pallas.py:482",
+            "dtype": "bfloat16",
+            "timing": "sum over the 9 modules of one bucket-8 forward "
+                      "(128 clips)",
+            "max_abs_err": worst[torch.float32][0],
+            "rel_err_f32": worst[torch.float32][1],
+            "max_abs_err_bf16": worst[torch.bfloat16][0],
+            "rel_err_bf16": worst[torch.bfloat16][1],
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "library_ms": total["library_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                         else "operations"),
+            "tflops": total["flops"] / total["ms"] / 1e9}
+
+
+def make_model(config, dtype, seed: int = 0, **kw):
     from jmt_tpu_torch.models.common import init_parameters
     from jmt_tpu_torch.models.jmt_model import JMTModel
-    model = JMTModel(**SLICE_CONFIG, dtype=dtype)
+    model = JMTModel(**config, dtype=dtype, **kw)
     return init_parameters(model, torch.Generator().manual_seed(seed))
 
 
@@ -225,56 +365,130 @@ def request(rng, b: int, seq: int, img: int = 112):
     return clips, audio, wavlm
 
 
-def phase_server() -> dict:
+def counted(fn):
+    """Run fn with every kernel's launch count set to 0 before; return
+    fn's result and the counts read after it."""
     from jmt_tpu_torch.ops.kernels.fused_attention import fused_attention
+    from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
     from jmt_tpu_torch.ops.kernels.melspec import log_mel_spec
+    wrappers = {"log_mel": log_mel_spec, "fused_attention": fused_attention,
+                "inception_module_fused": inception_module_fused}
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def drive(path: str, server, reqs: dict) -> dict:
+    """One request per batch size in ``reqs``; asserts the launches of
+    each kernel (per forward x forwards) and finite, non-constant V/A."""
+    outs, launches = counted(
+        lambda: {b: server.predict(*req) for b, req in reqs.items()})
+    expected = {k: v * len(reqs) for k, v in PER_FORWARD[path].items()}
+    emit({"phase": "launches", "path": path, "forwards": len(reqs),
+          **launches})
+    if launches != expected:
+        raise AssertionError(f"{path}: expected launches {expected} for "
+                             f"{len(reqs)} forwards, got {launches}")
+    for b, (v, a) in outs.items():
+        for name, x in (("v", v), ("a", a)):
+            if x.shape != (b, server.seq) or not np.isfinite(x).all() \
+                    or float(np.std(x)) == 0.0:
+                raise AssertionError(f"{path} batch {b} {name}: shape "
+                                     f"{x.shape}, finite="
+                                     f"{np.isfinite(x).all()}, std={np.std(x)}")
+        emit({"phase": "server_output", "path": path, "batch": b,
+              "v_std": float(np.std(v)), "a_std": float(np.std(a)),
+              "v_mean": float(np.mean(v)), "a_mean": float(np.mean(a))})
+    return launches
+
+
+def phase_flagship(rng) -> tuple:
+    """The main path: the flagship server with K3 on."""
     from jmt_tpu_torch.serve import InferenceServer
-    rng = np.random.default_rng(0)
-    server = InferenceServer(make_model(torch.bfloat16), seq=16,
-                             buckets=(1, 8))
+    model = make_model(FLAGSHIP_CONFIG, torch.bfloat16,
+                       i3d_fused_inception=True)
+    server = InferenceServer(model, seq=16, buckets=(1, 8))
     reqs = {b: request(rng, b, 16) for b in (1, 3, 8)}
     server.predict(*reqs[1])  # first call: cuDNN autotune, library load
     torch.cuda.synchronize()
+    launches = drive("flagship", server, reqs)
 
-    log_mel_spec.launches = 0
-    fused_attention.launches = 0
-    outs = {b: server.predict(*reqs[b]) for b in (1, 3, 8)}
-    torch.cuda.synchronize()
-    launches = {"log_mel": log_mel_spec.launches,
-                "fused_attention": fused_attention.launches}
-    emit({"phase": "server_launches", "forwards": 3, **launches})
-    if launches != {"log_mel": 3, "fused_attention": 30}:
-        raise AssertionError(f"expected 3 log-mel and 30 attention launches "
-                             f"for 3 forwards, got {launches}")
-    for b, (v, a) in outs.items():
-        for name, x in (("v", v), ("a", a)):
-            if x.shape != (b, 16) or not np.isfinite(x).all() \
-                    or float(np.std(x)) == 0.0:
-                raise AssertionError(f"batch {b} {name}: shape {x.shape}, "
-                                     f"finite={np.isfinite(x).all()}, "
-                                     f"std={np.std(x)}")
-        emit({"phase": "server_output", "batch": b,
-              "v_std": float(np.std(v)), "a_std": float(np.std(a)),
-              "v_mean": float(np.mean(v)), "a_mean": float(np.mean(a))})
-
-    # bf16 serving under PyTorch's default flags. cuDNN runs some R(2+1)D
-    # convs whose channel counts are not multiples of 8 (45, 230, 460, 921)
-    # on an f32 engine after converting from bf16; the bucket-8 request is
-    # timed with TF32 off as well, to show whether TF32 touches that engine.
+    # bf16 serving under PyTorch's default flags (cuDNN may use TF32 for
+    # the f32-engine convs whose channel counts are not multiples of 8)
     torch.cuda.reset_peak_memory_stats()
     flags = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
              "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     for b in (1, 8):
-        emit({"phase": "server_latency", **request_latency(server, reqs[b]),
-              **flags})
-    emit({"phase": "server_memory",
+        emit({"phase": "server_latency", "path": "flagship",
+              **request_latency(server, reqs[b]), **flags})
+    emit({"phase": "server_memory", "path": "flagship",
           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-    with full_fp32():
-        emit({"phase": "server_latency_tf32_off",
-              **request_latency(server, reqs[8])})
-    profile_forward(server, reqs[1])
-    profile_forward(server, reqs[8])
-    return launches
+    profile_forward("flagship", server, reqs[1])
+    profile_forward("flagship", server, reqs[8])
+    return launches, model, reqs[8]
+
+
+def phase_flag_off(model_on, req8) -> None:
+    """The flagship with the unfused cuDNN inception (the flag's "auto"
+    value), the same weights; then each backbone alone at bucket 8."""
+    from jmt_tpu_torch.serve import InferenceServer
+    model = make_model(FLAGSHIP_CONFIG, torch.bfloat16,
+                       i3d_fused_inception=False)
+    model.load_state_dict(model_on.state_dict())
+    server = InferenceServer(model, seq=16, buckets=(1, 8))
+    server.predict(*req8)
+    torch.cuda.synchronize()
+    drive("flagship_flag_off", server, {8: req8})
+    emit({"phase": "server_latency", "path": "flagship_flag_off",
+          **request_latency(server, req8)})
+    profile_forward("flagship_flag_off", server, req8)
+    layer_times(model_on, model, req8)
+
+
+def layer_times(model_on, model_off, req) -> None:
+    """Device ms (CUDA events) of each backbone alone on one bucket-8
+    batch already on the card: R2D1, audio ResNet-18, the I3D+TCN with the
+    flag on and off, and the folded I3D stem (conv + 15 corrections + BN)."""
+    from jmt_tpu_torch.train.loops import preprocess
+    arrays = {k: torch.from_numpy(x).cuda()
+              for k, x in zip(("clips", "audio", "wavlm"), req)}
+    with torch.inference_mode():
+        spec, clips = preprocess(model_on, arrays)
+        b, s = clips.shape[:2]
+        flat = clips.reshape(b * s, *clips.shape[2:])
+        x_i3d = flat.permute(0, 4, 1, 2, 3)
+        x_r2d1 = x_i3d.contiguous()
+        x_spec = spec.reshape(b * s, 1, *spec.shape[2:])
+        bb_on, bb_off = model_on.backbones, model_off.backbones
+        rec = {
+            "i3d_tcn_flag_on_ms": time_ms(lambda: bb_on._i3d_trunk(x_i3d),
+                                          iters=5, warmup=1),
+            "i3d_tcn_flag_off_ms": time_ms(lambda: bb_off._i3d_trunk(x_i3d),
+                                           iters=5, warmup=1),
+            "i3d_stem_fold_ms": time_ms(
+                lambda: bb_on.vision_i3d.i3d_WSDDA.Conv3d_1a_7x7.upsampled2x(
+                    x_i3d), iters=5, warmup=1),
+            "r2d1_ms": time_ms(lambda: bb_on.vision_r2d1(x_r2d1), iters=5,
+                               warmup=1),
+            "audio_resnet18_ms": time_ms(lambda: bb_on.audio_resnet18(x_spec),
+                                         iters=5, warmup=1)}
+    emit({"phase": "layers", "batch": int(b), **rec})
+
+
+def phase_slice(rng) -> None:
+    """The first slice's configuration (no I3D), kept as an earlier path."""
+    from jmt_tpu_torch.serve import InferenceServer
+    server = InferenceServer(make_model(SLICE_CONFIG, torch.bfloat16),
+                             seq=16, buckets=(1, 8))
+    reqs = {b: request(rng, b, 16) for b in (1, 8)}
+    server.predict(*reqs[1])
+    torch.cuda.synchronize()
+    drive("slice", server, reqs)
+    for b in (1, 8):
+        emit({"phase": "server_latency", "path": "slice",
+              **request_latency(server, reqs[b], iters=8)})
 
 
 def request_latency(server, req, iters: int = 12, warmup: int = 2) -> dict:
@@ -294,7 +508,7 @@ def request_latency(server, req, iters: int = 12, warmup: int = 2) -> dict:
             "clips_per_s": b * seq / (p50 / 1e3)}
 
 
-def profile_forward(server, req, reps: int = 3) -> None:
+def profile_forward(path: str, server, req, reps: int = 3) -> None:
     """Device kernel time by name over ``reps`` forwards of one bucket-shaped
     batch already on the card, against their wall time: the device's busy
     and idle share of the forward (host-to-device copies excluded)."""
@@ -318,7 +532,7 @@ def profile_forward(server, req, reps: int = 3) -> None:
             and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    emit({"phase": "profile", "batch": int(req[0].shape[0]),
+    emit({"phase": "profile", "path": path, "batch": int(req[0].shape[0]),
           "wall_ms_per_forward": wall_ms, "device_ms_per_forward": busy,
           "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
           "kernels_per_forward": sum(r[2] for r in rows),
@@ -330,9 +544,10 @@ def phase_card_vs_cpu() -> None:
     from jmt_tpu_torch.serve import InferenceServer
     rng = np.random.default_rng(1)
     req = request(rng, 1, 4)
-    bf16 = make_model(torch.bfloat16)
+    cfg = dict(FLAGSHIP_CONFIG, i3d_fused_inception=True)
+    bf16 = make_model(cfg, torch.bfloat16)
     sd = bf16.state_dict()
-    f32_card, f32_cpu = make_model(None), make_model(None)
+    f32_card, f32_cpu = make_model(cfg, None), make_model(cfg, None)
     f32_card.load_state_dict(sd)
     f32_cpu.load_state_dict(sd)
     out = {}
@@ -340,7 +555,8 @@ def phase_card_vs_cpu() -> None:
                              ("card_f32", f32_card, None),
                              ("cpu_f32", f32_cpu, "cpu")):
         server = InferenceServer(model, seq=4, buckets=(1,), device=dev)
-        out[name] = server.predict(*req)
+        out[name], launches = counted(lambda: server.predict(*req))
+        emit({"phase": "card_vs_cpu_launches", "run": name, **launches})
     d_cpu = max(float(np.abs(out["card_f32"][i] - out["cpu_f32"][i]).max())
                 for i in range(2))
     d_bf16 = max(float(np.abs(out["card_bf16"][i] - out["card_f32"][i]).max())
@@ -377,12 +593,22 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
-    phase_build()
+    with phase("build"):
+        phase_build()
     gen = torch.Generator().manual_seed(0)
-    with full_fp32():
-        kernels = [check_mel(gen), check_attention(gen)]
-    launches = phase_server()
-    with full_fp32():
+    with phase("kernels"), full_fp32():
+        kernels = [check_mel(gen), check_attention(gen), check_inception(gen)]
+    rng = np.random.default_rng(0)
+    with phase("flagship"):
+        launches, model_on, req8 = phase_flagship(rng)
+    with phase("flagship_flag_off"):
+        phase_flag_off(model_on, req8)
+    del model_on
+    torch.cuda.empty_cache()
+    with phase("slice"):
+        phase_slice(rng)
+    torch.cuda.empty_cache()
+    with phase("card_vs_cpu"), full_fp32():
         phase_card_vs_cpu()
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]

@@ -68,12 +68,15 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     ``generator``:
 
     * Linear: weight and bias ~ U(+-1/sqrt(fan_in));
-    * conv: kaiming_normal(fan_out, relu);
+    * conv: kaiming_normal(fan_out, relu), a bias ~ U(+-1/sqrt(fan_in));
+    * the TCN's weight-normed conv: v xavier_uniform(gain sqrt 2), g the
+      row norms of a U(+-1/sqrt(fan_in)) weight, bias ~ U(+-1/sqrt(fan_in));
     * LayerNorm and BatchNorm: ones / zeros, running stats 0 / 1;
     * MultiheadAttention: xavier_uniform packed in-proj, zero in- and
       out-proj biases (the out-proj weight keeps the Linear default).
     """
     from jmt_tpu_torch.ops.attention import MultiheadAttention
+    from jmt_tpu_torch.ops.conv import WeightNormConv1d
     from jmt_tpu_torch.ops.norm import TorchBatchNorm
     for mod in model.modules():
         if isinstance(mod, Linear):
@@ -84,6 +87,20 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, ConvNd):
             nn.init.kaiming_normal_(mod.weight, mode="fan_out",
                                     nonlinearity="relu", generator=generator)
+            if mod.bias is not None:
+                bound = 1.0 / math.sqrt(mod.weight[0].numel())
+                nn.init.uniform_(mod.bias, -bound, bound, generator=generator)
+        elif isinstance(mod, WeightNormConv1d):
+            # the reference re-inits v (xavier, gain sqrt 2) after wrapping;
+            # g keeps the row norms of the conv's default weight
+            fan_in = mod.weight_v[0].numel()
+            bound = 1.0 / math.sqrt(fan_in)
+            nn.init.xavier_uniform_(mod.weight_v, gain=math.sqrt(2.0),
+                                    generator=generator)
+            w0 = torch.empty_like(mod.weight_v).uniform_(
+                -bound, bound, generator=generator)
+            mod.weight_g.copy_(w0.norm(dim=(1, 2), keepdim=True))
+            nn.init.uniform_(mod.bias, -bound, bound, generator=generator)
         elif isinstance(mod, LayerNorm):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
@@ -98,19 +115,24 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 class ConvNd(nn.Module):
-    """Bias-free conv (2-D or 3-D by kernel rank), weight (O, I, *k) as in
-    torch, cast at use to ``dtype``."""
+    """Conv (1-, 2- or 3-D by kernel rank), weight (O, I, *k) as in torch,
+    bias-free unless ``bias``, cast at use to ``dtype``. A bias is added
+    after the conv, in ``dtype``, as the JAX modules add theirs."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel, stride=1, padding=0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, bias: bool = False):
         super().__init__()
         kernel = tuple(kernel)
         self.dtype = dtype
         self.stride = stride
         self.padding = padding
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel))
-        self._conv = {2: F.conv2d, 3: F.conv3d}[len(kernel)]
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+        self._conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[len(kernel)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv(cast(x, self.dtype), cast(self.weight, self.dtype),
-                          None, self.stride, self.padding)
+        y = self._conv(cast(x, self.dtype), cast(self.weight, self.dtype),
+                       None, self.stride, self.padding)
+        if self.bias is None:
+            return y
+        return y + cast(self.bias, self.dtype).view(-1, *[1] * (y.ndim - 2))

@@ -118,10 +118,15 @@ def inv_two_transformers(tree) -> SD:
 
 
 def inv_intra_modal_fusion(tree) -> SD:
+    """The JAX module creates its 768 -> 512 ``fc`` only when an input is
+    768-d (wavLM); the reference module always owns it. Over two 512-d
+    streams (the vision pair) it never runs, and its keys get zeros."""
+    fc = (inv_linear(tree["fc"], "fc") if "fc" in tree else
+          {"fc.weight": np.zeros((512, 768), np.float32),
+           "fc.bias": np.zeros((512,), np.float32)})
     return _merge(
         inv_encoder_block(tree["encoder"], "final_visual_encoder"),
-        inv_mha(tree["self_attention"], "final_self_attention"),
-        inv_linear(tree["fc"], "fc"))
+        inv_mha(tree["self_attention"], "final_self_attention"), fc)
 
 
 def inv_fc_layer(tree) -> SD:
@@ -232,6 +237,70 @@ def inv_r2d1_flatten_fc(tree, prefix: str = "") -> SD:
             _key(prefix, "bias"): _np(tree["bias"])}
 
 
+def inv_weight_norm_conv1d(tree, prefix: str) -> SD:
+    """{g (O,), v (k, I, O), bias} -> weight_g (O, 1, 1) + weight_v
+    (O, I, k) + bias, the torch <= 2.0 weight_norm keys."""
+    return {
+        _key(prefix, "weight_g"): _np(tree["g"]).reshape(-1, 1, 1),
+        _key(prefix, "weight_v"): np.transpose(_np(tree["v"]), (2, 1, 0)),
+        _key(prefix, "bias"): _np(tree["bias"]),
+    }
+
+
+def inv_tcn(tree, prefix: str = "") -> SD:
+    """TemporalConvNet params; conv1 and conv2 also under their reference
+    aliases ``net.0`` and ``net.4``."""
+    out: SD = {}
+    for i in range(len(tree)):
+        block = tree[f"block{i}"]
+        tp = f"{prefix}network.{i}"
+        for name, alias in (("conv1", "net.0"), ("conv2", "net.4")):
+            sd = inv_weight_norm_conv1d(block[name], f"{tp}.{name}")
+            out.update(sd)
+            out.update({k.replace(f"{tp}.{name}.", f"{tp}.{alias}."): v
+                        for k, v in sd.items()})
+        if "downsample_kernel" in block:
+            out[f"{tp}.downsample.weight"] = np.transpose(
+                _np(block["downsample_kernel"]), (2, 1, 0))
+            out[f"{tp}.downsample.bias"] = _np(block["downsample_bias"])
+    return out
+
+
+def _unit3d(t: "_Inv", torch_prefix: str, *path) -> None:
+    t.conv(f"{torch_prefix}.conv3d", *path)
+    t.bn(f"{torch_prefix}.bn", *path, "bn")
+
+
+INCEPTION_BRANCHES = ("b0", "b1a", "b1b", "b2a", "b2b", "b3b")
+MIXED = ("Mixed_3b", "Mixed_3c", "Mixed_4b", "Mixed_4c", "Mixed_4d",
+         "Mixed_4e", "Mixed_4f", "Mixed_5b", "Mixed_5c")
+
+
+def inv_inception_module(tree, prefix: str = "") -> SD:
+    t = _Inv(tree)
+    for branch in INCEPTION_BRANCHES:
+        _unit3d(t, f"{prefix}{branch}", branch)
+    return t.sd
+
+
+def inv_i3d(tree, prefix: str = "") -> SD:
+    """InceptionI3d feature path (no logits head)."""
+    t = _Inv(tree)
+    for unit in ("Conv3d_1a_7x7", "Conv3d_2b_1x1", "Conv3d_2c_3x3"):
+        _unit3d(t, f"{prefix}{unit}", unit)
+    for mixed in MIXED:
+        for branch in INCEPTION_BRANCHES:
+            _unit3d(t, f"{prefix}{mixed}.{branch}", mixed, branch)
+    return t.sd
+
+
+def inv_i3d_tcn(tree) -> SD:
+    i3d = {"params": tree["params"]["i3d"],
+           "batch_stats": tree["batch_stats"]["i3d"]}
+    return _merge(inv_i3d(i3d, prefix="i3d_WSDDA."),
+                  inv_tcn(tree["params"]["temporal"], prefix="temporal."))
+
+
 def inv_tsav(tree) -> SD:
     """TwoStreamBackbones variables -> the reference container's keys."""
     params, stats = tree["params"], tree.get("batch_stats") or {}
@@ -249,6 +318,10 @@ def inv_tsav(tree) -> SD:
     if "vision_r2d1_fc" in params:
         out.update(inv_r2d1_flatten_fc(params["vision_r2d1_fc"],
                                        prefix="vision_r2d1_fc"))
+    if "vision_i3d" in params:
+        out.update(_prefixed("vision_i3d", inv_i3d_tcn(
+            {"params": params["vision_i3d"],
+             "batch_stats": stats["vision_i3d"]})))
     return out
 
 
@@ -258,26 +331,30 @@ def inv_jmt_model(tree) -> SD:
     sd = _prefixed("backbones", inv_tsav(
         {"params": params["backbones"],
          "batch_stats": stats.get("backbones", {})}))
-    if "transformer_audio_modality_fusion" in params:
-        sd.update(_prefixed("transformer_audio_modality_fusion",
-                            inv_intra_modal_fusion(
-                                params["transformer_audio_modality_fusion"])))
-    if "fc_layer_for_audio_concat" in params:
-        sd.update(_prefixed("fc_layer_for_audio_concat", inv_fc_layer(
-            params["fc_layer_for_audio_concat"])))
+    for name in ("transformer_visio_modality_fusion",
+                 "transformer_audio_modality_fusion"):
+        if name in params:
+            sd.update(_prefixed(name, inv_intra_modal_fusion(params[name])))
+    for name in ("fc_layer_for_video_concat", "fc_layer_for_audio_concat"):
+        if name in params:
+            sd.update(_prefixed(name, inv_fc_layer(params[name])))
     sd.update(_prefixed("fusion_model",
                         inv_two_transformers(params["fusion_model"])))
     return sd
 
 
 def _converters():
-    from jmt_tpu_torch.models import (encoder, fusion, intra_modal, jmt,
-                                      jmt_model, resnet18, tsav,
+    from jmt_tpu_torch.models import (encoder, fusion, i3d, intra_modal,
+                                      jmt, jmt_model, resnet18, tcn, tsav,
                                       video_resnet)
     from jmt_tpu_torch.ops.attention import MultiheadAttention
     return {
         jmt_model.JMTModel: inv_jmt_model,
         tsav.TwoStreamBackbones: inv_tsav,
+        i3d.I3DTCN: inv_i3d_tcn,
+        i3d.InceptionI3d: inv_i3d,
+        i3d.InceptionModule: inv_inception_module,
+        tcn.TemporalConvNet: lambda t: inv_tcn(t["params"]),
         resnet18.ResNet18: inv_resnet18,
         video_resnet.VideoResNet: inv_video_resnet,
         fusion.TwoTransformers: lambda t: inv_two_transformers(t["params"]),

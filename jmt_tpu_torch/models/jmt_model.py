@@ -1,21 +1,24 @@
 """The composed model: backbones -> intra-modal fusion -> JMT -> heads.
 
 Counterpart of ``jmt_tpu/models/jmt_model.py`` ``JMTModel`` (goal
-TRAINING, eval forward) over the lattice this slice ports:
+TRAINING, eval forward) over the lattice the port covers:
 
-* vision {R2D1};
+* vision {R2D1}, {I3D}, {R2D1, I3D}; the pair fused by
+  'encoder_plus_self_attention' (IntraModalTransformerFusion over
+  (r2d1, i3d)) or 'feat_concat_fc' (FcLayer(1024 -> 512));
 * audio {ResNet18}, {wavLM} (-> FcLayer(768 -> 512)), {ResNet18, wavLM}
-  fused by 'encoder_plus_self_attention' (IntraModalTransformerFusion) or
-  'feat_concat_fc' (FcLayer(1280 -> 512));
+  fused by 'encoder_plus_self_attention' or 'feat_concat_fc'
+  (FcLayer(1280 -> 512));
 * JMT 'TRANSFORMER' with the SELF_ATTEN head, then the V/A regressors.
 
 Keys follow the reference's assembly: ``backbones.*``,
+``transformer_visio_modality_fusion.*``, ``fc_layer_for_video_concat.*``,
 ``transformer_audio_modality_fusion.*``, ``fc_layer_for_audio_concat.*``,
 ``fusion_model.*``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -26,39 +29,60 @@ from jmt_tpu_torch.models.intra_modal import (FcLayer,
 from jmt_tpu_torch.models.tsav import TwoStreamBackbones
 
 
+def _intra_modal(kind: str, concat_dim: int, num_heads: int,
+                 num_layers: int, dtype):
+    """(fc layer, transformer fusion) of one modality's backbone pair."""
+    if kind == "feat_concat_fc":
+        return FcLayer(concat_dim, dtype=dtype), None
+    if kind == "encoder_plus_self_attention":
+        return None, IntraModalTransformerFusion(
+            num_heads=num_heads, num_layers=num_layers, dtype=dtype)
+    raise NotImplementedError(kind)
+
+
 class JMTModel(nn.Module):
     def __init__(self, vision_backbones: Sequence[str] = ("R2D1",),
                  audio_backbones: Sequence[str] = ("ResNet18",),
                  intra_modal_fusion: str = "None",
                  num_heads: int = 1, num_layers: int = 1,
-                 r2d1_reduce: str = "MAX",
+                 r2d1_reduce: str = "MAX", i3d_input_size: int = 224,
+                 i3d_fused_inception: Union[bool, str] = "auto",
+                 i3d_chunk: int = 0,
                  dtype: Optional[torch.dtype] = None):
+        """i3d_fused_inception: True runs the nine inception modules as
+        kernel K3; "auto" resolves to False, as in the JAX package, until a
+        measurement on this card says otherwise (``PERF.md`` records both
+        paths' times)."""
         super().__init__()
         self.vision_backbones = tuple(vision_backbones)
         self.audio_backbones = tuple(audio_backbones)
         self.dtype = dtype
-        if self.vision_backbones != ("R2D1",):
+        if not self.vision_backbones or \
+                not set(self.vision_backbones) <= {"R2D1", "I3D"}:
             raise NotImplementedError(
-                f"vision_backbones={self.vision_backbones}: only ('R2D1',) "
-                "is ported")
+                f"vision_backbones={self.vision_backbones}: a non-empty "
+                "subset of ('R2D1', 'I3D') is ported")
+        fused = False if i3d_fused_inception == "auto" \
+            else bool(i3d_fused_inception)
         self.backbones = TwoStreamBackbones(
             vision_backbones=self.vision_backbones,
             audio_backbones=self.audio_backbones,
-            r2d1_reduce=r2d1_reduce, dtype=dtype)
+            r2d1_reduce=r2d1_reduce, i3d_input_size=i3d_input_size,
+            i3d_fused_inception=fused, i3d_chunk=i3d_chunk, dtype=dtype)
+
+        self.fc_layer_for_video_concat = None
+        self.transformer_visio_modality_fusion = None
+        if len(self.vision_backbones) == 2:
+            (self.fc_layer_for_video_concat,
+             self.transformer_visio_modality_fusion) = _intra_modal(
+                intra_modal_fusion, 512 + 512, num_heads, num_layers, dtype)
 
         self.fc_layer_for_audio_concat = None
         self.transformer_audio_modality_fusion = None
         if len(self.audio_backbones) == 2:
-            if intra_modal_fusion == "feat_concat_fc":
-                self.fc_layer_for_audio_concat = FcLayer(512 + 768,
-                                                         dtype=dtype)
-            elif intra_modal_fusion == "encoder_plus_self_attention":
-                self.transformer_audio_modality_fusion = \
-                    IntraModalTransformerFusion(
-                        num_heads=num_heads, num_layers=num_layers,
-                        dtype=dtype)
-            else:
-                raise NotImplementedError(intra_modal_fusion)
+            (self.fc_layer_for_audio_concat,
+             self.transformer_audio_modality_fusion) = _intra_modal(
+                intra_modal_fusion, 512 + 768, num_heads, num_layers, dtype)
         elif self.audio_backbones == ("wavLM",):
             self.fc_layer_for_audio_concat = FcLayer(768, dtype=dtype)
 
@@ -76,7 +100,18 @@ class JMTModel(nn.Module):
         """audio_spec (B,S,64,T) | clips (B,S,8,H,W,3) | wavlm (B,S,768).
         Returns (vouts, aouts), each (B, S)."""
         feats = self.backbones(audio_spec, clips)
-        visual_feats = feats["vision_r2d1"]
+        if len(self.vision_backbones) == 2:
+            r2d1, i3d = feats["vision_r2d1"], feats["vision_i3d"]
+            if self.fc_layer_for_video_concat is not None:
+                visual_feats = self.fc_layer_for_video_concat(
+                    torch.cat([r2d1, i3d], dim=-1))
+            else:
+                visual_feats = self.transformer_visio_modality_fusion(
+                    r2d1, i3d)
+        elif "R2D1" in self.vision_backbones:
+            visual_feats = feats["vision_r2d1"]
+        else:
+            visual_feats = feats["vision_i3d"]
         if len(self.audio_backbones) == 2:
             rn = feats["audio_resnet18"]
             if self.fc_layer_for_audio_concat is not None:

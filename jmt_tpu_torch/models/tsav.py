@@ -1,28 +1,48 @@
 """Two-stream aural-visual backbone container.
 
 Counterpart of ``jmt_tpu/models/tsav.py`` ``TwoStreamBackbones`` (eval
-forward): the audio ResNet-18 on the log-mel spectrogram and the R(2+1)D-18
-vision backbone with the MAX / AVG / FLATTEN feature reduce. The (B, S, ...)
-batch is flattened to (B*S, ...) and each backbone runs once on it.
+forward): the audio ResNet-18 on the log-mel spectrogram, the R(2+1)D-18
+vision backbone with the MAX / AVG / FLATTEN feature reduce, and the
+I3D+TCN vision backbone with a max over time. The (B, S, ...) batch is
+flattened to (B*S, ...) and each backbone runs once on it (I3D optionally
+in chunks of ``i3d_chunk`` clips).
+
+I3D input: when ``i3d_input_size`` is twice the clip size, the 2x upsample
+is folded into the stem (``ops/conv.conv3d_stem_upsample2x``) and the
+upsampled clip never exists; otherwise the clips are resized per frame,
+bilinear with half-pixel centres (the reference's trilinear interpolate
+with align_corners=False, an identity along T), or used as they are at
+equal size.
 
 Keys follow the reference container: ``audio_resnet18.resnet.*``,
-``vision_r2d1.r2plus1d.*`` and, for FLATTEN, ``vision_r2d1_fc``. The
-reference's R2D1 fc head never runs and is not constructed.
+``vision_r2d1.r2plus1d.*``, ``vision_r2d1_fc`` for FLATTEN,
+``vision_i3d.i3d_WSDDA.*`` and ``vision_i3d.temporal.*``. The reference's
+R2D1 fc and I3D heads never run and are not constructed.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from jmt_tpu_torch.models.common import Linear
+from jmt_tpu_torch.models.i3d import I3DTCN
 from jmt_tpu_torch.models.resnet18 import ResNet18
 from jmt_tpu_torch.models.video_resnet import r2plus1d_18
 
-I3D_NOT_PORTED = ("the I3D vision backbone (with TCN, the stem-upsample fold "
-                  "and the inception kernel) belongs to the next slice of "
-                  "the port")
+
+def resize_clips_for_i3d(clips: torch.Tensor, size: int = 224
+                         ) -> torch.Tensor:
+    """clips (N, C, T, H, W) -> (N, C, T, size, size), bilinear per frame
+    with half-pixel centres; the clips themselves at equal size."""
+    n, c, t, h, w = clips.shape
+    if h == size and w == size:
+        return clips
+    return F.interpolate(clips, size=(t, size, size), mode="trilinear",
+                         align_corners=False)
 
 
 class AudioModel(nn.Module):
@@ -47,23 +67,35 @@ class TwoStreamBackbones(nn.Module):
     def __init__(self, vision_backbones: Sequence[str] = ("R2D1",),
                  audio_backbones: Sequence[str] = ("ResNet18",),
                  r2d1_reduce: str = "MAX", flatten_dim: int = 512 * 7 * 7,
-                 dtype: Optional[torch.dtype] = None):
+                 i3d_input_size: int = 224, i3d_fused_inception: bool = False,
+                 i3d_chunk: int = 0, dtype: Optional[torch.dtype] = None):
         """flatten_dim: input width of the FLATTEN reduce's Linear (512 x
-        T' x H' x W' of the layer4 map; 512 x 1 x 7 x 7 at 8 x 112 x 112)."""
+        T' x H' x W' of the layer4 map; 512 x 1 x 7 x 7 at 8 x 112 x 112).
+        i3d_fused_inception: run the inception modules as kernel K3."""
         super().__init__()
-        if "I3D" in vision_backbones:
-            raise NotImplementedError(I3D_NOT_PORTED)
         if r2d1_reduce not in ("MAX", "AVG", "FLATTEN"):
             raise ValueError(f"r2d1_reduce={r2d1_reduce!r}")
         self.vision_backbones = tuple(vision_backbones)
         self.audio_backbones = tuple(audio_backbones)
         self.r2d1_reduce = r2d1_reduce
+        self.i3d_input_size = i3d_input_size
+        self.i3d_chunk = i3d_chunk
         if "R2D1" in self.vision_backbones:
             self.vision_r2d1 = VideoModel(dtype=dtype)
             if r2d1_reduce == "FLATTEN":
                 self.vision_r2d1_fc = Linear(flatten_dim, 512, dtype=dtype)
+        if "I3D" in self.vision_backbones:
+            self.vision_i3d = I3DTCN(fused_inception=i3d_fused_inception,
+                                     dtype=dtype)
         if "ResNet18" in self.audio_backbones:
             self.audio_resnet18 = AudioModel(dtype=dtype)
+
+    def _i3d_trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """x (N, 3, T, H, W) -> (N, T', 512)."""
+        size = self.i3d_input_size
+        if size == 2 * x.shape[3] and size == 2 * x.shape[4]:
+            return self.vision_i3d(x, stem_upsample2x=True)
+        return self.vision_i3d(resize_clips_for_i3d(x, size))
 
     def forward(self, audio_spec: Optional[torch.Tensor],
                 clips: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -88,4 +120,22 @@ class TwoStreamBackbones(nn.Module):
             else:  # FLATTEN in the reference's (C, T, H, W) order
                 f = self.vision_r2d1_fc(fmap.reshape(n, -1))
             feats["vision_r2d1"] = f.reshape(b, s, 512)
+        if "I3D" in self.vision_backbones:
+            b, s = clips.shape[:2]
+            # (N, T, H, W, 3) viewed as (N, 3, T, H, W): channels-last
+            flat = clips.reshape(b * s, *clips.shape[2:]).permute(0, 4, 1, 2, 3)
+            n, ck = flat.shape[0], self.i3d_chunk
+            if ck > 0 and n > ck and n % ck:
+                # a chunk that does not divide B*S silently disabling the
+                # memory knob is the out-of-memory-with-no-hint failure
+                warnings.warn(
+                    f"i3d_chunk={ck} does not divide the flat clip count "
+                    f"{n}: chunk streaming DISABLED; pick a divisor "
+                    f"(e.g. B=12,S=16 -> 96; B=16 -> 128)", RuntimeWarning)
+            if ck > 0 and n > ck and n % ck == 0:
+                tfeat = torch.cat([self._i3d_trunk(flat[i:i + ck])
+                                   for i in range(0, n, ck)])
+            else:
+                tfeat = self._i3d_trunk(flat)
+            feats["vision_i3d"] = torch.amax(tfeat, dim=1).reshape(b, s, 512)
         return feats

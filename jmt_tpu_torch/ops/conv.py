@@ -1,0 +1,179 @@
+"""Convolution and pooling helpers of the I3D and TCN branches.
+
+Counterpart of what ``jmt_tpu/ops/conv.py`` gives the I3D and TCN modules,
+in torch's NC... layout:
+
+* ``tf_same_pads``: the reference's TF-style 'SAME' padding, computed from
+  static sizes (pure Python);
+* ``max_pool_same``: MaxPool3dSamePadding. TF-SAME pads can be
+  asymmetric (pool 4a, (3, 3, 3) / (1, 2, 2) at 28 x 28, pads H by (0, 1)),
+  which ``F.max_pool3d``'s symmetric ``padding`` cannot say, so the input is
+  padded with -inf first: the same -inf init as ``reduce_window``;
+* ``avg_pool``: VALID average pool;
+* ``conv3d_stem_upsample2x``: the exact fold of the 112 -> 224 bilinear
+  upsample into the I3D stem (7 x 7 x 7, stride (1, 2, 2)): one 7 x 5 x 5
+  conv on the edge-replicated, zero-padded input plus row, column and
+  corner corrections;
+* ``WeightNormConv1d``: the TCN's causal dilated conv under torch
+  ``weight_norm``, weight ``g * v / ||v||``.
+
+The JAX package's space-to-depth stem (``conv3d_s2d_hw``) was a TPU
+lane-packing trick: a plain conv3d computes the same function. int8 belongs
+to a later slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from jmt_tpu_torch.models.common import cast
+
+Pads = Tuple[Tuple[int, int], ...]
+
+
+def tf_same_pads(sizes: Sequence[int], kernel: Sequence[int],
+                 strides: Sequence[int]) -> Pads:
+    """TF-SAME (front, back) padding per spatial dim: pad = max(k - s, 0)
+    if size % s == 0 else max(k - size % s, 0); front = pad // 2."""
+    out = []
+    for size, k, s in zip(sizes, kernel, strides):
+        pad = max(k - s, 0) if size % s == 0 else max(k - size % s, 0)
+        out.append((pad // 2, pad - pad // 2))
+    return tuple(out)
+
+
+def pad_arg(pads: Pads) -> list:
+    """(front, back) pairs in dim order -> ``F.pad``'s last-dim-first list."""
+    return [v for p in reversed(pads) for v in p]
+
+
+def max_pool_same(x: torch.Tensor, kernel: Sequence[int],
+                  strides: Sequence[int]) -> torch.Tensor:
+    """x (N, C, T, H, W); TF-SAME max pool with -inf padding."""
+    pads = tf_same_pads(x.shape[2:], kernel, strides)
+    if any(p != (0, 0) for p in pads):
+        x = F.pad(x, pad_arg(pads), value=-math.inf)
+    return F.max_pool3d(x, tuple(kernel), tuple(strides))
+
+
+def avg_pool(x: torch.Tensor, window: Sequence[int],
+             strides: Sequence[int]) -> torch.Tensor:
+    """x (N, C, T, H, W); VALID average pool: window sum / window size."""
+    return F.avg_pool3d(x, tuple(window), tuple(strides))
+
+
+# Fold matrix for (2x bilinear half-pixel upsample) o (7-tap stride-2 conv):
+# output j of the composite reads upsampled positions u = 2j-2+t (TF-SAME
+# pad (2, 3) on the 2n grid); each u is a 2-tap combination of the
+# edge-clamped input, so the 7 taps collapse onto 5 original-grid taps
+# x^[j-1+d] with weights w5[d] = sum_t FOLD[d, t] w7[t].
+_UPSAMPLE2X_FOLD = np.zeros((5, 7))
+for _d, _t, _w in ((0, 0, .25), (1, 0, .75), (1, 1, .75), (1, 2, .25),
+                   (2, 1, .25), (2, 2, .75), (2, 3, .75), (2, 4, .25),
+                   (3, 3, .25), (3, 4, .75), (3, 5, .75), (3, 6, .25),
+                   (4, 5, .25), (4, 6, .75)):
+    _UPSAMPLE2X_FOLD[_d, _t] = _w
+
+# The conv's zero padding on the 2n grid drops taps with u < 0 or u > 2n-1;
+# the folded conv over the replicate+zero extended x^ still counts them.
+# At each affected border output the phantom terms are multiples of the
+# edge pixel; ALPHA gives the per-tap coefficient on it.
+_UPSAMPLE2X_ALPHA = {
+    "lo": np.array([.75, 1., 0., 0., 0., 0., 0.]),       # j = 0
+    "hi1": np.array([0., 0., 0., 0., 0., 0., 1.]),       # j = n-2
+    "hi0": np.array([0., 0., 0., 0., 1., .75, .25]),     # j = n-1
+}
+
+
+def conv3d_stem_upsample2x(x: torch.Tensor, weight: torch.Tensor,
+                           t_pad: Tuple[int, int],
+                           compute_dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """``conv7x7x7_tf_same_stride_(1,2,2)(upsample2x_hw(x))`` without the 2x
+    tensor: one stride-1 7 x 5 x 5 conv plus border corrections.
+
+    x (N, Ci, T, H, W); weight (Co, Ci, kt, 7, 7), the unfolded stem
+    weight; t_pad: TF-SAME pads of T (stride 1). Returns (N, Co, T', H, W).
+    """
+    co, ci, kt, kh, kw = weight.shape
+    if (kh, kw) != (7, 7):
+        raise ValueError(f"stem fold takes a (kt, 7, 7) kernel, got "
+                         f"{(kt, kh, kw)}")
+    h, w = x.shape[3], x.shape[4]
+    if h < 4 or w < 4:  # the border sets {0, n-2, n-1} must be distinct
+        raise ValueError(f"stem fold needs H, W >= 4, got {(h, w)}")
+    wf = weight.float()
+    m = torch.tensor(_UPSAMPLE2X_FOLD, dtype=torch.float32,
+                     device=weight.device)
+
+    def vec(a):
+        return torch.tensor(a, dtype=torch.float32, device=weight.device)
+
+    k5 = cast(torch.einsum("ah,bw,oithw->oitab", m, m, wf), compute_dtype)
+    x = cast(x, compute_dtype)
+    # x^ extended: replicate 1 (the upsample's edge clamp), then zero 1
+    xr = F.pad(x, (1, 1, 1, 1, 0, 0), mode="replicate")
+    xz = F.pad(xr, (1, 1, 1, 1))
+    t0, t1 = t_pad
+    out = F.conv3d(F.pad(xz, (0, 0, 0, 0, t0, t1)), k5)
+
+    alphas = {0: _UPSAMPLE2X_ALPHA["lo"], h - 2: _UPSAMPLE2X_ALPHA["hi1"],
+              h - 1: _UPSAMPLE2X_ALPHA["hi0"]}
+    walphas = {0: _UPSAMPLE2X_ALPHA["lo"], w - 2: _UPSAMPLE2X_ALPHA["hi1"],
+               w - 1: _UPSAMPLE2X_ALPHA["hi0"]}
+    border_row = {0: 0, h - 2: h - 1, h - 1: h - 1}
+    border_col = {0: 0, w - 2: w - 1, w - 1: w - 1}
+    tpad = (t0, t1)
+    # subtract the folded conv's phantom terms on border rows and columns
+    for jh, av in alphas.items():
+        krow = cast(torch.einsum("h,bw,oithw->oitb", vec(av), m, wf),
+                    compute_dtype)
+        row = xz[:, :, :, border_row[jh] + 2, :]          # (N, Ci, T, W+4)
+        out[:, :, :, jh, :] -= F.conv2d(F.pad(row, (0, 0) + tpad), krow)
+    for jw, av in walphas.items():
+        kcol = cast(torch.einsum("w,ah,oithw->oita", vec(av), m, wf),
+                    compute_dtype)
+        col = xz[:, :, :, :, border_col[jw] + 2]          # (N, Ci, T, H+4)
+        out[:, :, :, :, jw] -= F.conv2d(F.pad(col, (0, 0) + tpad), kcol)
+    # corners were subtracted twice: add back once
+    for jh, ah in alphas.items():
+        for jw, aw in walphas.items():
+            kc = cast(torch.einsum("h,w,oithw->oit", vec(ah), vec(aw), wf),
+                      compute_dtype)
+            px = x[:, :, :, border_row[jh], border_col[jw]]  # (N, Ci, T)
+            out[:, :, :, jh, jw] += F.conv1d(F.pad(px, tpad), kc)
+    return out
+
+
+class WeightNormConv1d(nn.Module):
+    """Causal dilated Conv1d under torch ``weight_norm`` (dim 0).
+
+    Keys ``weight_g`` (O, 1, 1), ``weight_v`` (O, I, k), ``bias`` (O,), the
+    torch <= 2.0 layout the reference saves. The weight is ``g * v / ||v||``
+    with the norm over (I, k) per output channel, in f32. The reference pads
+    (k-1)*dilation on both sides and trims the right; left-only padding is
+    the same function. x (N, I, L) -> (N, O, L).
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 dilation: int = 1, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.dilation = dilation
+        self.weight_g = nn.Parameter(torch.ones(out_ch, 1, 1))
+        self.weight_v = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        v = self.weight_v.float()
+        norm = torch.sqrt(torch.sum(v ** 2, dim=(1, 2), keepdim=True))
+        weight = (self.weight_g / norm) * v
+        pad = (self.weight_v.shape[-1] - 1) * self.dilation
+        y = F.conv1d(F.pad(cast(x, self.dtype), (pad, 0)),
+                     cast(weight, self.dtype), dilation=self.dilation)
+        return y + cast(self.bias, self.dtype)[:, None]

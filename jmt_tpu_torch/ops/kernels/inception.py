@@ -1,0 +1,105 @@
+"""Wrapper of the CUDA whole-inception-module kernel (``csrc/inception.cu``).
+
+Replaces the TPU kernel ``jmt_tpu/ops/inception_pallas.py``
+(``inception_module_fused``, body ``_kernel``): one I3D inception module
+with frozen BN folded into its weights (``ops/inception.py``
+``fold_inception_weights``). The source note in ``csrc/inception.cu`` says
+what bounds it on an H100 and how its design answers that.
+
+``inception_module_fused`` is the dispatcher: a CPU tensor goes to the plain
+version ``ops.inception.inception_plain``; a CUDA tensor goes to the kernel,
+or the call raises. ``inception_module_fused.launches`` counts wrapper calls
+that launched the kernel (one call makes two or three launches).
+
+The kernel takes x (N, C, T, H, W) in ``torch.channels_last_3d`` memory, so
+it reads (N, T, H, W, C) rows without a transpose, f32 or bf16, with every
+channel count a multiple of 8. The JAX kernel's ``pool_in`` prologue is not
+ported: the port pools before the call, as the JAX model does.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from jmt_tpu_torch.ops.inception import FoldedInception, inception_plain
+from jmt_tpu_torch.ops.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+
+
+def _check(x: torch.Tensor, fw: FoldedInception, o: Sequence[int],
+           avg_tail: bool) -> None:
+    if x.dtype not in _DTYPES:
+        raise TypeError("inception kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if x.ndim != 5 or not x.is_contiguous(
+            memory_format=torch.channels_last_3d):
+        raise ValueError("inception kernel takes x (N, C, T, H, W) "
+                         "contiguous in torch.channels_last_3d memory")
+    n, c, t, h, w = x.shape
+    if len(o) != 6 or min(o) <= 0 or any(v % 8 for v in (c, *o)):
+        raise ValueError(f"inception kernel takes channel counts that are "
+                         f"positive multiples of 8; got C={c}, spec={o}")
+    if avg_tail and t < 2:
+        raise ValueError(f"avg_tail needs T >= 2, got T={t}")
+    o0, o1, o2, o3, o4, o5 = o
+    shapes = ((c, o0 + o1 + o3), (o0 + o1 + o3,), (27, o1, o2), (o2,),
+              (27, o3, o4), (o4,), (c, o5), (o5,))
+    for name, a, shape in zip(fw._fields, fw, shapes):
+        want = x.dtype if a.ndim > 1 else torch.float32
+        if (tuple(a.shape) != shape or a.dtype != want
+                or a.device != x.device or not a.is_contiguous()):
+            raise ValueError(f"inception kernel: {name} must be a contiguous "
+                             f"{want} {shape} on {x.device}; got "
+                             f"{a.dtype} {tuple(a.shape)} on {a.device}")
+
+
+def _launch(x: torch.Tensor, fw: FoldedInception, o: Sequence[int],
+            avg_tail: bool) -> torch.Tensor:
+    _check(x, fw, o, avg_tail)
+    n, c, t, h, w = x.shape
+    o0, o1, o2, o3, o4, o5 = o
+    co = o0 + o2 + o4 + o5
+    if avg_tail:
+        out = torch.empty(n, t - 1, co, dtype=x.dtype, device=x.device)
+        sums = torch.zeros(n * t, co, dtype=torch.float32, device=x.device)
+    else:
+        out = torch.empty((n, co, t, h, w), dtype=x.dtype, device=x.device,
+                          memory_format=torch.channels_last_3d)
+        sums = None
+    scratch = torch.empty(n * t * h * w, o1 + o3, dtype=x.dtype,
+                          device=x.device)
+    lib = build.load("inception")
+    fn = lib.jmt_inception_module
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = fn(x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                    0 if sums is None else sums.data_ptr(),
+                    *(a.data_ptr() for a in fw), n, t, h, w, c, *o,
+                    int(avg_tail), _DTYPES[x.dtype], stream)
+    build.check(lib, status, "inception kernel")
+    inception_module_fused.launches += 1
+    return out
+
+
+def inception_module_fused(x: torch.Tensor, fw: FoldedInception,
+                           out_channels: Sequence[int], *, pool_in=None,
+                           avg_tail: bool = False) -> torch.Tensor:
+    """x (N, C, T, H, W), NONNEGATIVE (post-ReLU or pool: the kernel's zero
+    pool padding equals -inf padding only then). Returns the module output
+    (N, co, T, H, W) in channels-last memory, or (N, T-1, co) with
+    ``avg_tail``. CUDA: the kernel; CPU: ``inception_plain``."""
+    if pool_in is not None:
+        raise ValueError("the inception kernel has no pool prologue: apply "
+                         "the max pool before the call")
+    o = tuple(int(v) for v in out_channels)
+    if x.is_cuda:
+        return _launch(x, fw, o, avg_tail)
+    return inception_plain(x, fw, o, avg_tail=avg_tail)
+
+
+inception_module_fused.launches = 0

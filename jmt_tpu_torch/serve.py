@@ -4,8 +4,9 @@ Counterpart of ``jmt_tpu/serve.py`` ``InferenceServer``. A request is padded
 UP to the smallest batch bucket, and a request larger than the top bucket
 is split into top-bucket chunks, so the forward only ever sees the bucket
 shapes. The forward is device preprocessing (one log-mel kernel launch for
-all B*S wavs) + backbones + fusion (attention-kernel launches), run eagerly
-under ``torch.inference_mode()``.
+all B*S wavs) + backbones (with I3D and ``i3d_fused_inception=True``, one
+inception-kernel call per module) + fusion (attention-kernel launches), run
+eagerly under ``torch.inference_mode()``.
 
 Usage::
 

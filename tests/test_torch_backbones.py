@@ -98,8 +98,3 @@ def test_two_stream_backbones_reduce(reduce):
     assert got.shape == (1, 2, 512)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=3e-4)
-
-
-def test_i3d_names_the_next_slice():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TwoStreamBackbones(vision_backbones=("R2D1", "I3D"))

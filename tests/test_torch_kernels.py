@@ -6,15 +6,18 @@ This file imports only torch, numpy and the port, so the tests marked
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 
 On the CPU the card tests skip; what runs here is the wrappers' CPU
-dispatch, the kernel's host-side constants, and a numpy emulation of the
-log-mel kernel's arithmetic held to the plain version.
+dispatch and refusals, the kernels' host-side constants, and numpy
+emulations of the log-mel and inception kernels' arithmetic held to the
+plain versions.
 """
 import numpy as np
 import pytest
 import torch
 
-from jmt_tpu_torch.ops import attention, mel
+from jmt_tpu_torch.models.i3d import I3D_STAGES, module_channels
+from jmt_tpu_torch.ops import attention, inception, mel
 from jmt_tpu_torch.ops.kernels import fused_attention as fa
+from jmt_tpu_torch.ops.kernels import inception as k3
 from jmt_tpu_torch.ops.kernels import melspec
 
 torch.set_num_threads(2)
@@ -47,12 +50,18 @@ def _qkv(bh, lq, lk, d, seed=0):
 # log-mel
 # ---------------------------------------------------------------------------
 def test_log_mel_dispatch_cpu_uses_plain_and_does_not_count():
+    """``log_mel`` flattens (2, 3, L) to (6, L) and hands that to the plain
+    version: bitwise equal to ``log_mel_batch`` on the same (6, L) input.
+    Against the (2, 3, L) call the batched GEMM may sum in another order
+    (gaps up to 3.9e-6 seen), so that comparison is held at atol 1e-5."""
     x = torch.from_numpy(_audio((2, 3, 45599), seed=2))
     before = melspec.log_mel_spec.launches
     got = mel.log_mel(x, batch_dims=2)
     assert melspec.log_mel_spec.launches == before
+    flat = mel.log_mel_batch(x.reshape(6, -1)).reshape(got.shape)
+    torch.testing.assert_close(got, flat, rtol=0, atol=0)
     torch.testing.assert_close(got, mel.log_mel_batch(x, batch_dims=2),
-                               rtol=0, atol=0)
+                               rtol=0, atol=1e-5)
     with pytest.raises(ValueError):
         mel.log_mel(x, batch_dims=1)
 
@@ -212,3 +221,219 @@ def test_attention_kernel_raises_on_inputs_it_does_not_take(cuda_device):
     wide = torch.zeros(1, 4, 1024, device=cuda_device)
     with pytest.raises(ValueError):
         fa.fused_attention(wide, wide, wide)
+
+
+# ---------------------------------------------------------------------------
+# inception module (K3)
+# ---------------------------------------------------------------------------
+def _mixed_shapes():
+    """(name, C, H = W, spec) of the nine modules at 112 px clips."""
+    cin, out = 192, []
+    for name, spec in I3D_STAGES:
+        if name.startswith("Mixed"):
+            out.append((name, cin, {"3": 28, "4": 14, "5": 7}[name[6]], spec))
+            cin = module_channels(spec)
+    return out
+
+
+def _folded(c, spec, dtype=torch.float32, seed=0):
+    """Folded weights from random conv kernels and random BN statistics."""
+    rng = np.random.default_rng(seed)
+    ci = {"b0": c, "b1a": c, "b1b": spec[1], "b2a": c, "b2b": spec[3],
+          "b3b": c}
+    co = dict(zip(inception.BRANCHES, (spec[0], spec[1], spec[2], spec[3],
+                                       spec[4], spec[5])))
+
+    def get(name):
+        k = 3 if name in ("b1b", "b2b") else 1
+        fan_in = k ** 3 * ci[name]
+        kernel = rng.normal(size=(k, k, k, ci[name], co[name])) * (
+            2.0 / fan_in) ** 0.5
+        n = co[name]
+        stats = (1 + 0.1 * rng.normal(size=n), 0.1 * rng.normal(size=n),
+                 0.1 * rng.normal(size=n), np.abs(1 + 0.1 * rng.normal(size=n)))
+        return tuple(torch.tensor(a, dtype=torch.float32)
+                     for a in (kernel, *stats))
+
+    return inception.fold_inception_weights(get, dtype)
+
+
+def _relu_input(n, c, t, h, w, seed=0):
+    """x >= 0, (N, C, T, H, W) in channels-last memory."""
+    x = np.maximum(np.random.default_rng(seed).normal(size=(n, t, h, w, c)),
+                   0).astype(np.float32)
+    return torch.from_numpy(x).permute(0, 4, 1, 2, 3)
+
+
+def _emulate_inception_kernel(x, fw, o, avg_tail):
+    """csrc/inception.cu in float64 numpy: the problems its ``run`` sets up
+    for the two launches, ``load_a``'s gathers (1x1 rows, 3x3x3 taps with
+    bounds-checked zero fill, the zero-padded pool over rows +- H W, W, 1)
+    and ``emit``'s segments, f32 rounding, relu and (n, t) sums."""
+    n, c, t, h, w = x.shape
+    rows = n * t * h * w
+    xr = x.permute(0, 2, 3, 4, 1).reshape(rows, c).double().numpy()
+    o0, o1, o2, o3, o4, o5 = o
+    co, sa = o0 + o2 + o4 + o5, o1 + o3
+    out, sums = np.zeros((rows, co)), np.zeros((n * t, co))
+    scratch = np.zeros((rows, sa))
+    r = np.arange(rows)
+    rt, rh, rw = (r // (h * w)) % t, (r // w) % h, r % w
+
+    def neighbour(dt, dh, dw):
+        ok = ((0 <= rt + dt) & (rt + dt < t) & (0 <= rh + dh) & (rh + dh < h)
+              & (0 <= rw + dw) & (rw + dw < w))
+        return ok[:, None], np.clip(r + (dt * h + dh) * w + dw, 0, rows - 1)
+
+    def load_a(mode, a, cin, aoff):
+        a = a[:, aoff:aoff + cin]
+        if mode == "1x1":
+            return a
+        if mode == "conv":  # depth k = tap * cin + channel, taps t-major
+            cols = []
+            for tap in range(27):
+                ok, nb = neighbour(tap // 9 - 1, (tap // 3) % 3 - 1,
+                                   tap % 3 - 1)
+                cols.append(np.where(ok, a[nb], 0.0))
+            return np.concatenate(cols, axis=1)
+        pooled = a.copy()
+        for tap in range(27):
+            ok, nb = neighbour(tap // 9 - 1, (tap // 3) % 3 - 1, tap % 3 - 1)
+            pooled = np.maximum(pooled, np.where(ok, a[nb], 0.0))
+        return pooled
+
+    def gemm(mode, a, cin, aoff, wmat, bias, segs):
+        acc = load_a(mode, a, cin, aoff) @ wmat.double().numpy().reshape(
+            -1, wmat.shape[-1])
+        v = acc + bias.double().numpy()
+        for dst, use_sums, begin, end, off, round_first in segs:
+            s = v[:, begin:end]
+            if round_first:
+                s = s.astype(np.float32).astype(np.float64)
+            s = np.maximum(s, 0.0)
+            if use_sums:
+                np.add.at(sums, (r // (h * w), slice(off, off + end - begin)),
+                          s)
+            else:
+                dst[:, off:off + end - begin] = s
+
+    def out_seg(begin, end, off, round_first):
+        return (out, avg_tail, begin, end, off, round_first)
+
+    gemm("1x1", xr, c, 0, fw.k1, fw.b1,
+         [out_seg(0, o0, 0, True),
+          (scratch, False, o0, o0 + o1, 0, True),
+          (scratch, False, o0 + o1, o0 + o1 + o3, o1, True)])
+    gemm("conv", scratch, o1, 0, fw.kb1, fw.bb1, [out_seg(0, o2, o0, False)])
+    gemm("conv", scratch, o3, o1, fw.kb2, fw.bb2,
+         [out_seg(0, o4, o0 + o2, False)])
+    gemm("pool", xr, c, 0, fw.k3, fw.b3,
+         [out_seg(0, o5, o0 + o2 + o4, False)])
+    if avg_tail:
+        s = sums.reshape(n, t, co)
+        return (s[:, :-1] + s[:, 1:]) * np.float32(1.0 / (2 * h * w))
+    return out.reshape(n, t, h, w, co).transpose(0, 4, 1, 2, 3)
+
+
+@pytest.mark.parametrize("shape,spec,avg_tail", [
+    ((2, 16, 4, 5, 6), (8, 16, 8, 8, 16, 8), False),
+    ((1, 24, 3, 4, 4), (16, 8, 24, 16, 8, 8), False),
+    ((2, 16, 4, 3, 3), (8, 16, 8, 8, 16, 8), True)])
+def test_inception_kernel_algorithm_matches_plain(shape, spec, avg_tail):
+    """The CUDA kernel's arithmetic (emulated, f64) against the plain
+    version (f32): atol 2e-5 relative to max |plain|. H != W catches a
+    swapped stride."""
+    n, c, t, h, w = shape
+    x = _relu_input(n, c, t, h, w, seed=1)
+    fw = _folded(c, spec, seed=2)
+    want = inception.inception_plain(x, fw, spec, avg_tail=avg_tail).numpy()
+    got = _emulate_inception_kernel(x, fw, spec, avg_tail)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+
+
+def test_inception_cpu_dispatch_uses_plain_and_does_not_count():
+    spec = (8, 16, 8, 8, 16, 8)
+    x = _relu_input(2, 16, 4, 5, 5)
+    fw = _folded(16, spec)
+    before = k3.inception_module_fused.launches
+    for avg_tail in (False, True):
+        got = k3.inception_module_fused(x, fw, spec, avg_tail=avg_tail)
+        want = inception.inception_plain(x, fw, spec, avg_tail=avg_tail)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got.shape == (2, 3, 40)
+    assert k3.inception_module_fused.launches == before
+    with pytest.raises(ValueError, match="pool prologue"):
+        k3.inception_module_fused(x, fw, spec,
+                                  pool_in=((1, 3, 3), (1, 2, 2)))
+
+
+def test_inception_wrapper_refuses_what_the_kernel_does_not_take():
+    """The checks the wrapper makes before a launch, on CPU tensors."""
+    spec = (8, 16, 8, 8, 16, 8)
+    x, fw = _relu_input(1, 16, 4, 5, 5), _folded(16, spec)
+    k3._check(x, fw, spec, avg_tail=True)   # takes the good case
+    with pytest.raises(TypeError):
+        k3._check(x.double(), fw, spec, False)
+    with pytest.raises(ValueError, match="channels_last_3d"):
+        k3._check(x.contiguous(), fw, spec, False)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        k3._check(x, _folded(16, (8, 4, 8, 4, 8, 8)), (8, 4, 8, 4, 8, 8),
+                  False)
+    with pytest.raises(ValueError, match="T >= 2"):
+        k3._check(x[:, :, :1], fw, spec, True)
+    with pytest.raises(ValueError, match="k1"):
+        k3._check(x, _folded(16, spec, dtype=torch.bfloat16), spec, False)
+
+
+@pytest.fixture()
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name,c,hw,spec", _mixed_shapes(),
+                         ids=[s[0] for s in _mixed_shapes()])
+def test_inception_kernel_matches_plain_on_card(name, c, hw, spec, dtype,
+                                                tol, cuda_device, no_tf32):
+    """Every module spec of the I3D at its real H = W, N = 2 clips, T = 8;
+    Mixed_5c with its avg_tail. Relative to max |plain|: 5e-5 in f32 (TF32
+    off), 1e-2 in bf16."""
+    x = _relu_input(2, c, 8, hw, hw, seed=6).to(cuda_device, dtype)
+    fw = inception.FoldedInception(
+        *(a.to(cuda_device) for a in _folded(c, spec, dtype, seed=7)))
+    avg_tail = name == "Mixed_5c"
+    before = k3.inception_module_fused.launches
+    got = k3.inception_module_fused(x, fw, spec, avg_tail=avg_tail)
+    torch.cuda.synchronize()
+    assert k3.inception_module_fused.launches == before + 1
+    want = inception.inception_plain(x, fw, spec, avg_tail=avg_tail)
+    assert got.shape == want.shape and got.dtype == dtype
+    if not avg_tail:
+        assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_inception_kernel_raises_on_inputs_it_does_not_take(cuda_device):
+    spec = (8, 16, 8, 8, 16, 8)
+    x = _relu_input(1, 16, 4, 5, 5).to(cuda_device)
+    fw = inception.FoldedInception(*(a.to(cuda_device)
+                                     for a in _folded(16, spec)))
+    with pytest.raises(TypeError):
+        k3.inception_module_fused(x.double(), fw, spec)
+    with pytest.raises(ValueError):
+        k3.inception_module_fused(x.contiguous(), fw, spec)
+    with pytest.raises(ValueError):
+        k3.inception_module_fused(x, fw, spec, pool_in=((1, 3, 3), (1, 2, 2)))
+    with pytest.raises(ValueError):
+        k3.inception_module_fused(x[:, :, :1], fw, spec, avg_tail=True)
