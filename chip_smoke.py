@@ -7,14 +7,18 @@ Phases, each printing one JSON record per line with its seconds; any
 failure raises and the script exits non-zero:
 
 1. device and build: the card's name and power limit, nvcc build seconds
-   of the three kernel sources and their ptxas lines;
+   of the four kernel sources and their ptxas lines;
 2. kernels against their plain PyTorch versions on the card (TF32 off):
    log-mel at N=128 (f32, atol 5e-5); attention at the serving path's four
    shapes in f32 (atol 2e-5) and bf16 (atol 1e-2) plus head_dim 64,
    Lq != Lk and L = 128 shapes; the inception module (K3) at all nine
    module specs of the I3D, 16 clips x T 8, f32 (5e-5 of max |plain|) and
-   bf16 (1e-2), then timed at 128 clips in bf16. Each with the times of
-   kernel, plain version and library yardstick (CUDA events), and the bound;
+   bf16 (1e-2), then timed at 128 clips in bf16; K3 with ``pool_in`` at the
+   three absorbed modules (Mixed_3b, 4b, 5b on the pre-pool maps of
+   MaxPool3d_3a, 4a, 5a), the same tolerances, timed beside the port's
+   unfused module and the K3 launch without ``pool_in``, each after
+   ``max_pool_same``. Each with the times of kernel, plain version and
+   library yardstick (CUDA events), and the bound;
 3. the flagship server (the main path): R2D1 MAX + I3D+TCN (112 -> 224 fold)
    with encoder_plus_self_attention, ResNet18 & wavLM with
    encoder_plus_self_attention, JMT SELF_ATTEN, 1 head, 1 layer, at full
@@ -26,11 +30,22 @@ failure raises and the script exits non-zero:
 4. the same flagship with the flag off (unfused cuDNN inception): launches
    of one bucket-8 request (no inception launch) and its p50; the device
    time of each backbone alone at bucket 8, flag on and off;
-5. the first slice's configuration (no I3D), an earlier path: launches
+5. the flagship with its pools absorbed into K3 (path A): the flag-on
+   model with the gate ``ops/kernels/inception._ABSORB_POOLS`` on for the
+   phase; launches per forward asserted (1 log-mel, 12 attention, 9
+   inception, 3 of them with ``pool_in``), p50/p90 at buckets 1 and 8, a
+   profile at bucket 8 and the I3D+TCN time;
+6. the first slice's configuration (no I3D), an earlier path: launches
    (1 log-mel, 10 attention per forward) and p50 at buckets 1 and 8;
-6. card against CPU: the flagship, flag on, one seq-4 request, card f32
+7. K4 (path B, ``jmt_tpu_torch.tools.pool1x1_experiment``): against its
+   plain version at the TPU tool's check shapes (f32 within 1e-5, bf16
+   within 1e-2 of max |plain|), timed at its six shapes (bf16, 128 clips)
+   beside its plain version and max_pool_same + a 1x1 cuDNN conv; the
+   Mixed_4b..4f chain with 4 K4 launches a forward (asserted) and with
+   cuDNN alone;
+8. card against CPU: the flagship, flag on, one seq-4 request, card f32
    (kernels, TF32 off) against CPU f32 (plain versions), V/A max abs delta
-   <= 1e-3; card bf16 against card f32.
+   <= 1e-3, with the gate off and on; card bf16 against card f32.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 kernels summary JSON, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -58,13 +73,20 @@ SLICE_CONFIG = dict(vision_backbones=("R2D1",),
                     num_heads=1, num_layers=1, r2d1_reduce="MAX")
 FLAGSHIP_CONFIG = dict(SLICE_CONFIG, vision_backbones=("R2D1", "I3D"),
                        i3d_input_size=224)
-# kernel launches per forward of each path
-PER_FORWARD = {"flagship": {"log_mel": 1, "fused_attention": 12,
-                            "inception_module_fused": 9},
-               "flagship_flag_off": {"log_mel": 1, "fused_attention": 12,
-                                     "inception_module_fused": 0},
-               "slice": {"log_mel": 1, "fused_attention": 10,
-                         "inception_module_fused": 0}}
+# kernel launches per forward of each path (inception_pool_in: the K3
+# launches among inception_module_fused's that took pool_in)
+_NONE = {"log_mel": 0, "fused_attention": 0, "inception_module_fused": 0,
+         "inception_pool_in": 0, "pool3_1x1": 0}
+PER_FORWARD = {"flagship": dict(_NONE, log_mel=1, fused_attention=12,
+                                inception_module_fused=9),
+               "flagship_flag_off": dict(_NONE, log_mel=1,
+                                         fused_attention=12),
+               "flagship_absorbed": dict(_NONE, log_mel=1,
+                                         fused_attention=12,
+                                         inception_module_fused=9,
+                                         inception_pool_in=3),
+               "slice": dict(_NONE, log_mel=1, fused_attention=10),
+               "pool1x1_chain": dict(_NONE, pool3_1x1=4)}
 # attention problems of one flagship forward at bucket 8 (B=8, S=16, E=512,
 # 1 head): the visual and the audio intra-modal fusion, two each
 ATTN_PATH_SHAPES = (("intra_modal", 128, 2, 2, 512, 4),
@@ -239,13 +261,16 @@ def check_attention(gen: torch.Generator) -> dict:
 
 
 def inception_modules():
-    """(name, C, H = W, spec) of the nine modules at 112 px clips (the
-    stem fold keeps the 224 px geometry: 28, 14 and 7)."""
+    """(name, C, H = W, spec, pool_in) of the nine modules at 112 px clips
+    (the stem fold keeps the 224 px geometry: 28, 14 and 7); pool_in is
+    the MaxPool right before the module, or None."""
     from jmt_tpu_torch.models.i3d import I3D_STAGES, module_channels
     cin, out = 192, []
-    for name, spec in I3D_STAGES:
+    for i, (name, spec) in enumerate(I3D_STAGES):
         if name.startswith("Mixed"):
-            out.append((name, cin, {"3": 28, "4": 14, "5": 7}[name[6]], spec))
+            before, pool = I3D_STAGES[i - 1]
+            out.append((name, cin, {"3": 28, "4": 14, "5": 7}[name[6]], spec,
+                        pool if before.startswith("MaxPool") else None))
             cin = module_channels(spec)
     return out
 
@@ -265,46 +290,59 @@ def random_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
                                   .abs())
 
 
-def check_inception(gen: torch.Generator) -> dict:
-    """K3 against its plain version at every module spec (16 clips, T 8):
-    f32 within 5e-5 and bf16 within 1e-2 of max |plain|; then at 128 clips
-    (bucket 8) in bf16 the times of kernel, plain version and library (the
-    port's own unfused InceptionModule: cuDNN, bf16, channels-last)."""
+def check_inception(gen: torch.Generator, absorbed: bool = False) -> dict:
+    """K3 against its plain version at every module spec (16 clips, T 8),
+    or with ``absorbed`` at the three modules that take a ``pool_in``, x
+    then the pre-pool map: f32 within 5e-5 and bf16 within 1e-2 of max
+    |plain|. Then at 128 clips (bucket 8) in bf16 the times of kernel,
+    plain version and library (the port's own unfused InceptionModule:
+    ``max_pool_same`` first when absorbed, then cuDNN, bf16, channels-last)
+    and, when absorbed, of ``max_pool_same`` followed by the K3 launch
+    without pool_in. The bound counts the kernel's own input bytes."""
     from jmt_tpu_torch.models.common import init_parameters
-    from jmt_tpu_torch.models.i3d import InceptionModule
+    from jmt_tpu_torch.models.i3d import InceptionModule, module_channels
+    from jmt_tpu_torch.ops.conv import max_pool_same
     from jmt_tpu_torch.ops.inception import (fold_inception_weights,
                                              inception_plain)
     from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
     tol = {torch.float32: 5e-5, torch.bfloat16: 1e-2}
     worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-             "bytes_ms": 0.0, "ops_ms": 0.0, "flops": 0.0}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
+        ("k3_after_pool_ms",) if absorbed else ())
+    total = dict.fromkeys(keys + ("bytes_ms", "ops_ms", "flops"), 0.0)
     cuda_gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, c, hw, spec in inception_modules():
+    for name, c, hw, spec, pool in inception_modules():
+        if absorbed and pool is None:
+            continue
+        pool = pool if absorbed else None
         avg = name == "Mixed_5c"
-        m = InceptionModule(c, spec, avg_tail=avg, dtype=torch.bfloat16)
+        pre = 2 * hw if absorbed else hw
+        kw = dict(pool_in=pool, avg_tail=avg)
+        m = InceptionModule(c, spec, dtype=torch.bfloat16, **kw)
         init_parameters(m, gen)
         random_bn(m, gen)
         m = m.cuda().eval()
-        rec = {"name": name, "C": c, "HW": hw, "spec": list(spec),
-               "avg_tail": avg}
+        rec = {"name": name, "C": c, "HW": hw, "spec": list(spec), **kw}
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(16, 8, hw, hw, c, device="cuda",
+            x = torch.randn(16, 8, pre, pre, c, device="cuda",
                             generator=cuda_gen).relu_().to(dtype)
             x = x.permute(0, 4, 1, 2, 3)                 # channels-last
             fw = fold_inception_weights(m._folded_branch, dtype)
-            got = inception_module_fused(x, fw, spec, avg_tail=avg).float()
-            want = inception_plain(x, fw, spec, avg_tail=avg).float()
+            got = inception_module_fused(x, fw, spec, **kw).float()
+            want = inception_plain(x, fw, spec, **kw).float()
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
             key = "f32" if dtype == torch.float32 else "bf16"
             rec[f"max_abs_err_{key}"], rec[f"rel_err_{key}"] = err, rel
             worst[dtype] = [max(worst[dtype][0], err),
                             max(worst[dtype][1], rel)]
-            if not (torch.isfinite(got).all() and rel <= tol[dtype]):
-                raise AssertionError(f"inception kernel {name} {dtype}: "
-                                     f"relative err {rel} (tol {tol[dtype]})")
-        x = torch.randn(128, 8, hw, hw, c, device="cuda",
+            if not (got.shape == want.shape and torch.isfinite(got).all()
+                    and rel <= tol[dtype]):
+                raise AssertionError(f"inception kernel {name} {dtype} "
+                                     f"pool_in={pool}: relative err {rel} "
+                                     f"(tol {tol[dtype]}), shape "
+                                     f"{tuple(got.shape)}")
+        x = torch.randn(128, 8, pre, pre, c, device="cuda",
                         generator=cuda_gen).relu_().to(torch.bfloat16)
         x = x.permute(0, 4, 1, 2, 3)
         fw = fold_inception_weights(m._folded_branch, torch.bfloat16)
@@ -312,40 +350,44 @@ def check_inception(gen: torch.Generator) -> dict:
         flops = 2 * 128 * 8 * hw * hw * (c * (o[0] + o[1] + o[3])
                                          + 27 * o[1] * o[2] + 27 * o[3] * o[4]
                                          + c * o[5])
-        co = o[0] + o[2] + o[4] + o[5]
+        co = module_channels(spec)
         out_elems = 128 * (7 * co if avg else 8 * hw * hw * co)
         n_bytes = (x.numel() + out_elems + sum(a.numel() for a in fw)) * 2
         b_ms, b_by = bound(n_bytes, flops, BF16_PEAK_FLOPS)
+
+        def k3_after_pool():
+            xp = max_pool_same(x, *pool).contiguous(
+                memory_format=torch.channels_last_3d)
+            return inception_module_fused(xp, fw, spec)
+
         with torch.inference_mode():
             rec.update({
                 "ms": time_ms(lambda: inception_module_fused(
-                    x, fw, spec, avg_tail=avg), iters=10, warmup=2),
+                    x, fw, spec, **kw), iters=10, warmup=2),
                 "plain_ms": time_ms(lambda: inception_plain(
-                    x, fw, spec, avg_tail=avg), iters=5, warmup=1),
+                    x, fw, spec, **kw), iters=5, warmup=1),
                 "library_ms": time_ms(lambda: m(x), iters=10, warmup=2)})
+            if absorbed:
+                rec["k3_after_pool_ms"] = time_ms(k3_after_pool, iters=10,
+                                                  warmup=2)
         rec.update({"clips": 128, "gflop": flops / 1e9, "bound_ms": b_ms,
                     "bound_by": b_by,
                     "tflops": flops / rec["ms"] / 1e9})
         emit({"phase": "kernel", "kernel": "inception_module_fused", **rec})
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for key in keys:
             total[key] += rec[key]
         total["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
         total["ops_ms"] += flops / BF16_PEAK_FLOPS * 1e3
         total["flops"] += flops
         del m, x, fw
-    return {"name": "inception_module_fused", "route": "cuda",
-            "source": "jmt_tpu_torch/csrc/inception.cu",
-            "replaces": "jmt_tpu/ops/inception_pallas.py:482",
-            "dtype": "bfloat16",
-            "timing": "sum over the 9 modules of one bucket-8 forward "
-                      "(128 clips)",
+    return {"timing": ("sum over Mixed_3b, 4b and 5b with pool_in"
+                       if absorbed else "sum over the 9 modules of one "
+                       "bucket-8 forward") + " (128 clips)",
             "max_abs_err": worst[torch.float32][0],
             "rel_err_f32": worst[torch.float32][1],
             "max_abs_err_bf16": worst[torch.bfloat16][0],
             "rel_err_bf16": worst[torch.bfloat16][1],
-            "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "library_ms": total["library_ms"],
-            "bound_ms": total["bound_ms"],
+            **{key: total[key] for key in keys},
             "bound_by": ("bytes" if total["bytes_ms"] >= total["ops_ms"]
                          else "operations"),
             "tflops": total["flops"] / total["ms"] / 1e9}
@@ -371,13 +413,19 @@ def counted(fn):
     from jmt_tpu_torch.ops.kernels.fused_attention import fused_attention
     from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
     from jmt_tpu_torch.ops.kernels.melspec import log_mel_spec
-    wrappers = {"log_mel": log_mel_spec, "fused_attention": fused_attention,
-                "inception_module_fused": inception_module_fused}
-    for w in wrappers.values():
-        w.launches = 0
+    from jmt_tpu_torch.ops.kernels.pool1x1 import pool3_1x1
+    counters = {"log_mel": (log_mel_spec, "launches"),
+                "fused_attention": (fused_attention, "launches"),
+                "inception_module_fused": (inception_module_fused,
+                                           "launches"),
+                "inception_pool_in": (inception_module_fused,
+                                      "pool_in_launches"),
+                "pool3_1x1": (pool3_1x1, "launches")}
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: w.launches for k, w in wrappers.items()}
+    return out, {k: getattr(w, attr) for k, (w, attr) in counters.items()}
 
 
 def drive(path: str, server, reqs: dict) -> dict:
@@ -427,7 +475,7 @@ def phase_flagship(rng) -> tuple:
           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
     profile_forward("flagship", server, reqs[1])
     profile_forward("flagship", server, reqs[8])
-    return launches, model, reqs[8]
+    return launches, model, reqs
 
 
 def phase_flag_off(model_on, req8) -> None:
@@ -445,6 +493,59 @@ def phase_flag_off(model_on, req8) -> None:
           **request_latency(server, req8)})
     profile_forward("flagship_flag_off", server, req8)
     layer_times(model_on, model, req8)
+
+
+@contextlib.contextmanager
+def absorb_pools():
+    """The gate of K3's pool prologue on, restored after."""
+    from jmt_tpu_torch.ops.kernels import inception
+    saved = inception._ABSORB_POOLS
+    inception._ABSORB_POOLS = True
+    try:
+        yield
+    finally:
+        inception._ABSORB_POOLS = saved
+
+
+def phase_absorbed(model_on, reqs) -> dict:
+    """Path A: the flag-on model with the pools absorbed into K3; returns
+    the launches of its counted run."""
+    from jmt_tpu_torch.serve import InferenceServer
+    server = InferenceServer(model_on, seq=16, buckets=(1, 8))
+    flag_on = [server.predict(*reqs[8]) for _ in range(2)]
+    with absorb_pools():
+        launches = drive("flagship_absorbed", server, reqs)
+        absorbed = server.predict(*reqs[8])
+        # flag on twice: the run-to-run spread (avg_tail sums by atomics)
+        emit({"phase": "absorbed_vs_flag_on", "batch": 8,
+              "va_max_abs": va_max_abs(absorbed, flag_on[0]),
+              "flag_on_rerun_va_max_abs": va_max_abs(*flag_on)})
+        for b in (1, 8):
+            emit({"phase": "server_latency", "path": "flagship_absorbed",
+                  **request_latency(server, reqs[b])})
+        profile_forward("flagship_absorbed", server, reqs[8])
+        x = i3d_input(model_on, reqs[8])
+        with torch.inference_mode():
+            emit({"phase": "layers", "batch": int(reqs[8][0].shape[0]),
+                  "i3d_tcn_absorbed_ms": time_ms(
+                      lambda: model_on.backbones._i3d_trunk(x), iters=5,
+                      warmup=1)})
+    return launches
+
+
+def va_max_abs(x, y) -> float:
+    """Max abs delta of two (V, A) results over both."""
+    return max(float(np.abs(x[i] - y[i]).max()) for i in range(2))
+
+
+def i3d_input(model, req) -> torch.Tensor:
+    """The I3D trunk's input (B S, 3, T, H, W) of one request, on the card."""
+    from jmt_tpu_torch.train.loops import preprocess
+    arrays = {k: torch.from_numpy(x).cuda()
+              for k, x in zip(("clips", "audio", "wavlm"), req)}
+    with torch.inference_mode():
+        _, clips = preprocess(model, arrays)
+    return clips.reshape(-1, *clips.shape[2:]).permute(0, 4, 1, 2, 3)
 
 
 def layer_times(model_on, model_off, req) -> None:
@@ -489,6 +590,59 @@ def phase_slice(rng) -> None:
     for b in (1, 8):
         emit({"phase": "server_latency", "path": "slice",
               **request_latency(server, reqs[b], iters=8)})
+
+
+def phase_pool1x1() -> dict:
+    """Path B: K4 through its experiment entry point
+    (``jmt_tpu_torch.tools.pool1x1_experiment``); returns K4's record."""
+    from jmt_tpu_torch.tools import pool1x1_experiment as pe
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    checks = pe.check(gen)
+    timed = [pe.time_case(shape, co, gen)
+             for mode in ("time", "time2")
+             for shape, co in pe.TIME_SHAPES[mode]]
+    for rec in checks + timed:
+        emit({"phase": "kernel", "kernel": "pool3_1x1", **rec})
+    x = torch.randn(*pe.CHAIN_INPUT, device="cuda", generator=gen)
+    x = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+    with torch.inference_mode():
+        y_k4, launches = counted(lambda: pe.build_chain(True).cuda()(x))
+        y_cudnn = pe.build_chain(False).cuda()(x)
+    emit({"phase": "launches", "path": "pool1x1_chain", "forwards": 1,
+          **launches})
+    if launches != PER_FORWARD["pool1x1_chain"]:
+        raise AssertionError(f"pool1x1 chain: expected launches "
+                             f"{PER_FORWARD['pool1x1_chain']}, got "
+                             f"{launches}")
+    chain_rel = ((y_k4.float() - y_cudnn.float()).abs().max()
+                 / y_cudnn.float().abs().max()).item()
+    chains = {rec["k4_b3"]: rec for rec in (pe.chain(True, gen, x),
+                                            pe.chain(False, gen, x))}
+    emit({"phase": "pool1x1_chain", "k4_ms": chains[True]["chain_ms"],
+          "cudnn_ms": chains[False]["chain_ms"],
+          "out_rel_delta_k4_vs_cudnn": chain_rel})
+    if not (torch.isfinite(y_k4).all() and chain_rel <= 0.1):
+        raise AssertionError(f"pool1x1 chain: K4 against cuDNN relative "
+                             f"delta {chain_rel} (limit 0.1)")
+    main = next(r for r in timed
+                if r["shape"] == [128, 8, 14, 14, 512] and r["co"] == 64)
+    f32 = [r for r in checks if r["dtype"] == "float32"]
+    bf16 = [r for r in checks + timed if r["dtype"] == "bfloat16"]
+    return {"name": "pool3_1x1", "route": "cuda",
+            "source": "jmt_tpu_torch/csrc/pool1x1.cu",
+            "replaces": "tools/pallas_pool1x1_experiment.py:76",
+            "dtype": "bfloat16",
+            "timing": "(128, 8, 14, 14, 512) -> 64 bf16; launches: one "
+                      "forward of the Mixed_4b..4f chain",
+            "max_abs_err": max(r["max_abs_err"] for r in f32),
+            "rel_err_f32": max(r["rel_err"] for r in f32),
+            "max_abs_err_bf16": max(r["max_abs_err"] for r in bf16),
+            "rel_err_bf16": max(r["rel_err"] for r in bf16),
+            **{k: main[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")},
+            "chain_ms": chains[True]["chain_ms"],
+            "chain_cudnn_ms": chains[False]["chain_ms"],
+            "launches": launches["pool3_1x1"]}
 
 
 def request_latency(server, req, iters: int = 12, warmup: int = 2) -> dict:
@@ -541,6 +695,8 @@ def profile_forward(path: str, server, req, reps: int = 3) -> None:
 
 
 def phase_card_vs_cpu() -> None:
+    """The flagship, flag on, with the pools pooled first and absorbed:
+    card f32 (kernels, TF32 off) against CPU f32 (plain versions)."""
     from jmt_tpu_torch.serve import InferenceServer
     rng = np.random.default_rng(1)
     req = request(rng, 1, 4)
@@ -550,22 +706,30 @@ def phase_card_vs_cpu() -> None:
     f32_card, f32_cpu = make_model(cfg, None), make_model(cfg, None)
     f32_card.load_state_dict(sd)
     f32_cpu.load_state_dict(sd)
+    runs = (("card_bf16", bf16, None, False),
+            ("card_f32", f32_card, None, False),
+            ("cpu_f32", f32_cpu, "cpu", False),
+            ("card_f32_absorbed", f32_card, None, True),
+            ("cpu_f32_absorbed", f32_cpu, "cpu", True))
     out = {}
-    for name, model, dev in (("card_bf16", bf16, None),
-                             ("card_f32", f32_card, None),
-                             ("cpu_f32", f32_cpu, "cpu")):
+    for name, model, dev, absorbed in runs:
         server = InferenceServer(model, seq=4, buckets=(1,), device=dev)
-        out[name], launches = counted(lambda: server.predict(*req))
+        with absorb_pools() if absorbed else contextlib.nullcontext():
+            out[name], launches = counted(lambda: server.predict(*req))
         emit({"phase": "card_vs_cpu_launches", "run": name, **launches})
-    d_cpu = max(float(np.abs(out["card_f32"][i] - out["cpu_f32"][i]).max())
-                for i in range(2))
-    d_bf16 = max(float(np.abs(out["card_bf16"][i] - out["card_f32"][i]).max())
-                 for i in range(2))
+        if name == "card_f32_absorbed" and launches["inception_pool_in"] != 3:
+            raise AssertionError(f"{name}: 3 pool_in launches expected, got "
+                                 f"{launches}")
+    d_cpu = va_max_abs(out["card_f32"], out["cpu_f32"])
+    d_abs = va_max_abs(out["card_f32_absorbed"], out["cpu_f32_absorbed"])
     emit({"phase": "card_vs_cpu", "card_f32_vs_cpu_f32_max_abs": d_cpu,
-          "card_bf16_vs_card_f32_max_abs": d_bf16,
+          "absorbed_card_f32_vs_cpu_f32_max_abs": d_abs,
+          "card_bf16_vs_card_f32_max_abs": va_max_abs(out["card_bf16"],
+                                                      out["card_f32"]),
           "va_std_cpu": float(np.std(out["cpu_f32"][0]))})
-    if not d_cpu <= 1e-3:
-        raise AssertionError(f"card f32 vs CPU f32 V/A delta {d_cpu} > 1e-3")
+    if not (d_cpu <= 1e-3 and d_abs <= 1e-3):
+        raise AssertionError(f"card f32 vs CPU f32 V/A delta {d_cpu}, "
+                             f"absorbed {d_abs} (limit 1e-3)")
 
 
 @contextlib.contextmanager
@@ -597,21 +761,36 @@ def main() -> int:
         phase_build()
     gen = torch.Generator().manual_seed(0)
     with phase("kernels"), full_fp32():
-        kernels = [check_mel(gen), check_attention(gen), check_inception(gen)]
+        kernels = [check_mel(gen), check_attention(gen),
+                   {"name": "inception_module_fused", "route": "cuda",
+                    "source": "jmt_tpu_torch/csrc/inception.cu",
+                    "replaces": "jmt_tpu/ops/inception_pallas.py:482",
+                    "dtype": "bfloat16", **check_inception(gen)}]
+        k3_pool_in = check_inception(gen, absorbed=True)
     rng = np.random.default_rng(0)
     with phase("flagship"):
-        launches, model_on, req8 = phase_flagship(rng)
+        launches, model_on, reqs = phase_flagship(rng)
     with phase("flagship_flag_off"):
-        phase_flag_off(model_on, req8)
+        phase_flag_off(model_on, reqs[8])
+    with phase("flagship_absorbed"):
+        absorbed = phase_absorbed(model_on, reqs)
     del model_on
     torch.cuda.empty_cache()
     with phase("slice"):
         phase_slice(rng)
     torch.cuda.empty_cache()
+    with phase("pool1x1"):
+        k4 = phase_pool1x1()
+    torch.cuda.empty_cache()
     with phase("card_vs_cpu"), full_fp32():
         phase_card_vs_cpu()
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
+    kernels[2]["pool_in"] = dict(
+        k3_pool_in, launches=absorbed["inception_module_fused"],
+        pool_in_launches=absorbed["inception_pool_in"],
+        launches_of="the flagship_absorbed run (3 forwards)")
+    kernels.append(k4)
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

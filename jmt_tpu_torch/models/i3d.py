@@ -26,7 +26,9 @@ from jmt_tpu_torch.models.tcn import TemporalConvNet
 from jmt_tpu_torch.ops.conv import (avg_pool, conv3d_stem_upsample2x,
                                     max_pool_same, pad_arg, tf_same_pads)
 from jmt_tpu_torch.ops.inception import BN_EPS, fold_inception_weights
-from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
+from jmt_tpu_torch.ops.kernels import inception as inception_kernel
+from jmt_tpu_torch.ops.kernels.inception import (inception_module_fused,
+                                                 pool_absorbable)
 from jmt_tpu_torch.ops.norm import TorchBatchNorm
 
 CHANNELS_LAST = torch.channels_last_3d
@@ -76,10 +78,13 @@ class InceptionModule(nn.Module):
     Unfused: the b0 | b1a | b2a 1x1 convs run as ONE conv (weights
     concatenated on the output axis), then each branch's BN + ReLU on its
     split, as the JAX module does. Fused: BN is folded into the weights and
-    the whole module is kernel K3 (``ops/kernels/inception.py``). Either way
-    ``pool_in`` (the preceding MaxPool3dSamePadding) is applied first, and
-    ``avg_tail`` (Mixed_5c) applies AvgPool3d((2, H, W)) and returns
-    (N, T-1, C).
+    the whole module is kernel K3 (``ops/kernels/inception.py``). ``pool_in``
+    (the preceding MaxPool3dSamePadding) is applied first, except on the
+    fused path with the gate ``ops/kernels/inception._ABSORB_POOLS`` on
+    (off by default, as in JAX) and a pool the kernel absorbs
+    (``pool_absorbable``): then K3 takes the pre-pool x and pools in its
+    prologue. ``avg_tail`` (Mixed_5c) applies AvgPool3d((2, H, W)) and
+    returns (N, T-1, C).
     """
 
     def __init__(self, in_ch: int, out_channels: Sequence[int],
@@ -103,14 +108,20 @@ class InceptionModule(nn.Module):
                 u.bn.weight, u.bn.bias, u.bn.running_mean, u.bn.running_var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.pool_in is not None:
-            x = max_pool_same(x, *self.pool_in)
         dt = self.dtype or x.dtype
         if self.fused:
+            absorb = (inception_kernel._ABSORB_POOLS
+                      and pool_absorbable(self.pool_in, x.shape))
+            if self.pool_in is not None and not absorb:
+                x = max_pool_same(x, *self.pool_in)
             fw = fold_inception_weights(self._folded_branch, dt)
             x = x.to(dt).contiguous(memory_format=CHANNELS_LAST)
-            return inception_module_fused(x, fw, self.out_channels,
-                                          avg_tail=self.avg_tail)
+            return inception_module_fused(
+                x, fw, self.out_channels,
+                pool_in=self.pool_in if absorb else None,
+                avg_tail=self.avg_tail)
+        if self.pool_in is not None:
+            x = max_pool_same(x, *self.pool_in)
         o = self.out_channels
         k = torch.cat([self.b0.conv3d.weight, self.b1a.conv3d.weight,
                        self.b2a.conv3d.weight])

@@ -17,7 +17,11 @@ computes, with its cast points:
   GEMM, f32, + bias, relu, cast on emit;
 * ``avg_tail`` (Mixed_5c): per branch the f32 sum over (H, W) of the
   branch's value as emitted above (b0 already rounded, the others in f32),
-  then ``(s[t] + s[t+1]) / (2 H W)``, cast: (N, T-1, co).
+  then ``(s[t] + s[t+1]) / (2 H W)``, cast: (N, T-1, co);
+* ``pool_in`` (the absorbed MaxPool3d_3a/4a/5a): x is the pre-pool map and
+  the module first takes its TF-SAME max pool with ZERO padding (again equal
+  to -inf padding because x >= 0). The pads are asymmetric on the right:
+  (1, 3, 3) / (1, 2, 2) on an even H pads H and W by (0, 1).
 
 Layouts are torch's: x is (N, C, T, H, W) (the port's I3D keeps it in
 ``torch.channels_last_3d`` memory), the module output (N, co, T, H, W) in
@@ -27,10 +31,12 @@ o5), f32 biases. The kernel wrapper is ``ops/kernels/inception.py``.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from jmt_tpu_torch.ops.conv import pad_arg, tf_same_pads
 
 BN_EPS = 1e-3
 BRANCHES = ("b0", "b1a", "b1b", "b2a", "b2b", "b3b")
@@ -96,12 +102,23 @@ def _conv3(a: torch.Tensor, kt: torch.Tensor, bias: torch.Tensor
     return torch.relu(out.permute(0, 2, 3, 4, 1) + bias)
 
 
+def _pool_zero_padded(x: torch.Tensor, kernel: Sequence[int],
+                  strides: Sequence[int]) -> torch.Tensor:
+    """TF-SAME max pool of x (N, C, T, H, W) >= 0 with zero padding."""
+    pads = tf_same_pads(x.shape[2:], kernel, strides)
+    return F.max_pool3d(F.pad(x, pad_arg(pads)), tuple(kernel),
+                        tuple(strides))
+
+
 def inception_plain(x: torch.Tensor, fw: FoldedInception,
-                    out_channels: Sequence[int], avg_tail: bool = False
-                    ) -> torch.Tensor:
+                    out_channels: Sequence[int], avg_tail: bool = False,
+                    pool_in: Optional[Tuple] = None) -> torch.Tensor:
     """x (N, C, T, H, W) in the working dtype -> (N, co, T, H, W), or
-    (N, T-1, co) with ``avg_tail``."""
+    (N, T-1, co) with ``avg_tail``. ``pool_in`` = (kernel, strides): x is
+    the pre-pool map, and H, W above are the pooled ones."""
     o0, o1, o2, o3, o4, o5 = out_channels
+    if pool_in is not None:
+        x = _pool_zero_padded(x, *pool_in)
     dt = x.dtype
     xl = x.permute(0, 2, 3, 4, 1)                          # (N, T, H, W, C)
     y = (_gemm_1x1(xl, fw.k1) + fw.b1).to(dt)

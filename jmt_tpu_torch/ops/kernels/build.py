@@ -7,11 +7,11 @@ plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/<name>.cu
 
 The libraries go to ``build/jmt_tpu_torch/`` at the root of the checkout,
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused. ``build_all`` starts one nvcc per source,
-all at once; ``load`` builds a missing library on first use. nvcc's report
-(registers, shared memory, spills from ``-Xptxas -v``) is kept beside each
-library as ``<lib>.log``.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+``build_all`` starts one nvcc per source, all at once; ``load`` builds a
+missing library on first use. nvcc's report (registers, shared memory,
+spills from ``-Xptxas -v``) is kept beside each library as ``<lib>.log``.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "jmt_tpu_torch"
-SOURCES = ("melspec", "fused_attention", "inception")
+SOURCES = ("melspec", "fused_attention", "inception", "pool1x1")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +46,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

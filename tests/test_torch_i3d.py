@@ -30,6 +30,7 @@ from jmt_tpu_torch.models.jmt_model import JMTModel
 from jmt_tpu_torch.models.tcn import TemporalConvNet
 from jmt_tpu_torch.models.tsav import TwoStreamBackbones, resize_clips_for_i3d
 from jmt_tpu_torch.ops.conv import conv3d_stem_upsample2x
+from jmt_tpu_torch.ops.kernels import inception as k3
 from jmt_tpu_torch.train.loops import preprocess
 
 torch.set_num_threads(2)
@@ -107,15 +108,32 @@ def i3dtcn_pair():
     return x, np.asarray(out), _np_tree(variables)
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_i3dtcn_matches_jax(i3dtcn_pair, fused):
+@pytest.mark.parametrize("fused", [False, True, "absorbed"])
+def test_i3dtcn_matches_jax(i3dtcn_pair, fused, monkeypatch):
     """End to end (stem fold, pools, nine modules, avg tail, TCN), with
-    the modules unfused and fused (the plain version of K3 on the CPU)."""
+    the modules unfused, fused (the plain version of K3 on the CPU), and
+    fused with the gate ``_ABSORB_POOLS`` on: every pre-pool map of the
+    32 px fold fixture is even, so pools 3a, 4a and 5a reach the
+    dispatcher as ``pool_in`` of Mixed_3b, 4b and 5b."""
     x, want, variables = i3dtcn_pair
-    pm = load_jax_variables(I3DTCN(fused_inception=fused), variables)
+    pool_ins = []
+    if fused == "absorbed":
+        def spy(x, fw, out_channels, *, pool_in=None, avg_tail=False):
+            pool_ins.append(pool_in)
+            return real(x, fw, out_channels, pool_in=pool_in,
+                        avg_tail=avg_tail)
+
+        real = pi3d.inception_module_fused
+        monkeypatch.setattr(k3, "_ABSORB_POOLS", True)
+        monkeypatch.setattr(pi3d, "inception_module_fused", spy)
+    pm = load_jax_variables(I3DTCN(fused_inception=bool(fused)), variables)
     with torch.inference_mode():
         got = pm(torch.from_numpy(x).permute(0, 4, 1, 2, 3),
                  stem_upsample2x=True)
+    if fused == "absorbed":
+        assert pool_ins == [((1, 3, 3), (1, 2, 2)), None,
+                            ((3, 3, 3), (1, 2, 2)), None, None, None, None,
+                            ((2, 2, 2), (1, 2, 2)), None]
     assert got.shape == want.shape == (1, 3, 512)
     assert float(np.abs(want).max()) > 1e-3
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-4)

@@ -22,8 +22,10 @@ from jmt_tpu.ops.conv import tf_same_pads as jtf_same_pads
 from jmt_tpu_torch.models.convert import (load_jax_variables,
                                           state_dict_from_jax)
 from jmt_tpu_torch.models.i3d import I3D_STAGES, InceptionModule
+from jmt_tpu_torch.models import i3d as pi3d
 from jmt_tpu_torch.ops import inception
 from jmt_tpu_torch.ops.conv import tf_same_pads
+from jmt_tpu_torch.ops.kernels import inception as k3
 from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
 
 torch.set_num_threads(2)
@@ -95,6 +97,32 @@ def test_plain_version_matches_jax_kernel(shape, avg_tail):
     assert _rel(_from_port(got), want) < 2e-5
 
 
+@pytest.mark.parametrize("shape,pool_in,ht,avg_tail", [
+    ((1, 4, 28, 28, 16), ((1, 3, 3), (1, 2, 2)), 0, False),   # multi-tile
+    ((1, 4, 28, 28, 16), ((3, 3, 3), (1, 2, 2)), 0, False),   # temporal
+    ((1, 4, 14, 14, 16), ((2, 2, 2), (1, 2, 2)), 0, False),   # k = 2
+    ((2, 3, 14, 14, 16), ((1, 3, 3), (1, 2, 2)), 7, False),   # one tile
+    ((1, 3, 14, 14, 16), ((2, 2, 2), (1, 2, 2)), 0, True)],   # + avg_tail
+    ids=["multi_tile", "temporal", "k2", "single_tile", "avg_tail"])
+def test_plain_pool_in_matches_jax_kernel(shape, pool_in, ht, avg_tail):
+    """``inception_plain(pool_in=...)`` on the pre-pool map against the JAX
+    kernel's pool prologue (interpret mode), at the shapes of
+    ``tests/test_inception_pallas.py``'s pool-prologue tests."""
+    x = _relu_x(shape, seed=9)
+    v = _random_module_vars(JInceptionModule(shape[-1], SPEC), x, seed=10)
+    want = np.asarray(ip.inception_module_fused(
+        jnp.asarray(x), ip.fold_inception_weights(_getter(v, False),
+                                                  jnp.float32),
+        SPEC, pool_in=pool_in, avg_tail=avg_tail, ht=ht, interpret=True))
+    fw = inception.fold_inception_weights(_getter(v, True), torch.float32)
+    got = inception.inception_plain(_to_port(x), fw, SPEC, avg_tail=avg_tail,
+                                    pool_in=pool_in)
+    n, t, h, w = shape[:4]
+    assert got.shape == ((n, t - 1, 32) if avg_tail
+                         else (n, 32, t, h // 2, w // 2))
+    assert _rel(_from_port(got), want) < 2e-5
+
+
 def test_fold_matches_jax_and_bn_algebra():
     """The port's fold equals the JAX fold (f32, 1e-6), and
     conv(x, k s) + t == BN(conv(x, k)) with running stats, eps 1e-3."""
@@ -139,6 +167,44 @@ def test_inception_module_matches_jax(shape, kw, fused):
                                             **kw), v)
     with torch.inference_mode():
         got = _from_port(pm(_to_port(x)))
+    assert got.shape == want.shape
+    assert _rel(got, want) < 2e-5
+
+
+@pytest.mark.parametrize("shape,kw,absorbed", [
+    ((2, 3, 14, 14, 16), {"pool_in": ((1, 3, 3), (1, 2, 2))}, True),
+    ((1, 4, 14, 14, 16), {"pool_in": ((3, 3, 3), (1, 2, 2))}, True),
+    ((1, 3, 14, 14, 16), {"pool_in": ((2, 2, 2), (1, 2, 2)),
+                          "avg_tail": True}, True),
+    ((1, 3, 7, 7, 16), {"pool_in": ((2, 2, 2), (1, 2, 2))}, False)],
+    ids=["k3", "temporal", "avg_tail", "unabsorbable_7x7"])
+def test_absorbed_inception_module_matches_jax(shape, kw, absorbed,
+                                               monkeypatch):
+    """The port's fused module with the gate ``_ABSORB_POOLS`` on: an
+    absorbable pool reaches the kernel's dispatcher as ``pool_in`` with the
+    pre-pool x, an odd pre-pool map (7 x 7, native 112 px) is pooled
+    outside first, as in JAX; either way equal to the JAX module's
+    unfused path (2e-5 of max |ref|)."""
+    x = _relu_x(shape, seed=11)
+    jm = JInceptionModule(shape[-1], SPEC, **kw)
+    v = _random_module_vars(jm, x, seed=12)
+    want = np.asarray(jm.apply(v, x))
+    pm = load_jax_variables(InceptionModule(shape[-1], SPEC, fused=True,
+                                            **kw), v)
+    seen = []
+
+    def spy(x, fw, out_channels, *, pool_in=None, avg_tail=False):
+        seen.append((tuple(x.shape), pool_in))
+        return inception_module_fused(x, fw, out_channels, pool_in=pool_in,
+                                      avg_tail=avg_tail)
+
+    monkeypatch.setattr(k3, "_ABSORB_POOLS", True)
+    monkeypatch.setattr(pi3d, "inception_module_fused", spy)
+    with torch.inference_mode():
+        got = _from_port(pm(_to_port(x)))
+    pre = (shape[0], shape[4]) + shape[1:4]
+    assert seen == ([(pre, kw["pool_in"])] if absorbed
+                    else [((1, 16, 3, 4, 4), None)])
     assert got.shape == want.shape
     assert _rel(got, want) < 2e-5
 

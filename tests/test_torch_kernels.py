@@ -7,8 +7,8 @@ This file imports only torch, numpy and the port, so the tests marked
 
 On the CPU the card tests skip; what runs here is the wrappers' CPU
 dispatch and refusals, the kernels' host-side constants, and numpy
-emulations of the log-mel and inception kernels' arithmetic held to the
-plain versions.
+emulations of the log-mel, inception (with its pool prologue) and pool +
+1x1 kernels' arithmetic held to the plain versions.
 """
 import numpy as np
 import pytest
@@ -19,6 +19,8 @@ from jmt_tpu_torch.ops import attention, inception, mel
 from jmt_tpu_torch.ops.kernels import fused_attention as fa
 from jmt_tpu_torch.ops.kernels import inception as k3
 from jmt_tpu_torch.ops.kernels import melspec
+from jmt_tpu_torch.ops.kernels import pool1x1 as k4
+from jmt_tpu_torch.ops.pool1x1 import pool3_1x1_plain
 
 torch.set_num_threads(2)
 
@@ -236,6 +238,15 @@ def _mixed_shapes():
     return out
 
 
+# the three modules that absorb a pool at 112 px clips: (name, C, pre-pool
+# H = W, spec, pool_in) for Mixed_3b, 4b, 5b after MaxPool3d_3a, 4a, 5a
+_ABSORBED = tuple((name, c, 2 * hw, spec, dict(I3D_STAGES)[
+    {"Mixed_3b": "MaxPool3d_3a_3x3", "Mixed_4b": "MaxPool3d_4a_3x3",
+     "Mixed_5b": "MaxPool3d_5a_2x2"}[name]])
+    for name, c, hw, spec in _mixed_shapes()
+    if name in ("Mixed_3b", "Mixed_4b", "Mixed_5b"))
+
+
 def _folded(c, spec, dtype=torch.float32, seed=0):
     """Folded weights from random conv kernels and random BN statistics."""
     rng = np.random.default_rng(seed)
@@ -265,14 +276,18 @@ def _relu_input(n, c, t, h, w, seed=0):
     return torch.from_numpy(x).permute(0, 4, 1, 2, 3)
 
 
-def _emulate_inception_kernel(x, fw, o, avg_tail):
+def _emulate_inception_kernel(x, fw, o, avg_tail, pool_in=None):
     """csrc/inception.cu in float64 numpy: the problems its ``run`` sets up
     for the two launches, ``load_a``'s gathers (1x1 rows, 3x3x3 taps with
-    bounds-checked zero fill, the zero-padded pool over rows +- H W, W, 1)
-    and ``emit``'s segments, f32 rounding, relu and (n, t) sums."""
+    bounds-checked zero fill, the zero-padded pool over rows +- H W, W, 1;
+    with pool_in, ``load_pooled``'s window over the pre-pool rows, whose
+    result the first launch also writes for b3 to read) and ``emit``'s
+    segments, f32 rounding, relu and (n, t) sums."""
     n, c, t, h, w = x.shape
+    if pool_in is not None:
+        h, w = h // 2, w // 2
     rows = n * t * h * w
-    xr = x.permute(0, 2, 3, 4, 1).reshape(rows, c).double().numpy()
+    xr = x.permute(0, 2, 3, 4, 1).reshape(-1, c).double().numpy()
     o0, o1, o2, o3, o4, o5 = o
     co, sa = o0 + o2 + o4 + o5, o1 + o3
     out, sums = np.zeros((rows, co)), np.zeros((n * t, co))
@@ -284,6 +299,23 @@ def _emulate_inception_kernel(x, fw, o, avg_tail):
         ok = ((0 <= rt + dt) & (rt + dt < t) & (0 <= rh + dh) & (rh + dh < h)
               & (0 <= rw + dw) & (rw + dw < w))
         return ok[:, None], np.clip(r + (dt * h + dh) * w + dw, 0, rows - 1)
+
+    def load_pooled(pre):  # window t - (kt-1)/2 + [0, kt), 2h + [0, k), ...
+        (kt, k, _), _ = pool_in
+        hp, wp, nt = 2 * h, 2 * w, r // (h * w) - rt
+        pooled = np.zeros((rows, c))
+        for tt in (rt - (kt - 1) // 2 + dt for dt in range(kt)):
+            for hh in (2 * rh + dh for dh in range(k)):
+                for ww in (2 * rw + dw for dw in range(k)):
+                    ok = (0 <= tt) & (tt < t) & (hh < hp) & (ww < wp)
+                    idx = np.clip(((nt + tt) * hp + hh) * wp + ww, 0,
+                                  len(pre) - 1)
+                    pooled = np.maximum(pooled,
+                                        np.where(ok[:, None], pre[idx], 0.0))
+        return pooled
+
+    if pool_in is not None:
+        xr = load_pooled(xr)
 
     def load_a(mode, a, cin, aoff):
         a = a[:, aoff:aoff + cin]
@@ -335,37 +367,70 @@ def _emulate_inception_kernel(x, fw, o, avg_tail):
     return out.reshape(n, t, h, w, co).transpose(0, 4, 1, 2, 3)
 
 
-@pytest.mark.parametrize("shape,spec,avg_tail", [
-    ((2, 16, 4, 5, 6), (8, 16, 8, 8, 16, 8), False),
-    ((1, 24, 3, 4, 4), (16, 8, 24, 16, 8, 8), False),
-    ((2, 16, 4, 3, 3), (8, 16, 8, 8, 16, 8), True)])
-def test_inception_kernel_algorithm_matches_plain(shape, spec, avg_tail):
+@pytest.mark.parametrize("shape,spec,avg_tail,pool_in", [
+    ((2, 16, 4, 5, 6), (8, 16, 8, 8, 16, 8), False, None),
+    ((1, 24, 3, 4, 4), (16, 8, 24, 16, 8, 8), False, None),
+    ((2, 16, 4, 3, 3), (8, 16, 8, 8, 16, 8), True, None),
+    ((2, 16, 3, 10, 8), (8, 16, 8, 8, 16, 8), False, ((1, 3, 3), (1, 2, 2))),
+    ((1, 16, 4, 8, 10), (8, 16, 8, 8, 16, 8), False, ((3, 3, 3), (1, 2, 2))),
+    ((2, 24, 3, 6, 4), (16, 8, 24, 16, 8, 8), True, ((2, 2, 2), (1, 2, 2)))])
+def test_inception_kernel_algorithm_matches_plain(shape, spec, avg_tail,
+                                                  pool_in):
     """The CUDA kernel's arithmetic (emulated, f64) against the plain
     version (f32): atol 2e-5 relative to max |plain|. H != W catches a
-    swapped stride."""
+    swapped stride; with pool_in the shape is the pre-pool map."""
     n, c, t, h, w = shape
     x = _relu_input(n, c, t, h, w, seed=1)
     fw = _folded(c, spec, seed=2)
-    want = inception.inception_plain(x, fw, spec, avg_tail=avg_tail).numpy()
-    got = _emulate_inception_kernel(x, fw, spec, avg_tail)
+    want = inception.inception_plain(x, fw, spec, avg_tail=avg_tail,
+                                     pool_in=pool_in).numpy()
+    got = _emulate_inception_kernel(x, fw, spec, avg_tail, pool_in)
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
 
 
 def test_inception_cpu_dispatch_uses_plain_and_does_not_count():
+    """Without and with pool_in (x the pre-pool map): the plain version,
+    bitwise, and no launch counted."""
     spec = (8, 16, 8, 8, 16, 8)
-    x = _relu_input(2, 16, 4, 5, 5)
+    x = _relu_input(2, 16, 4, 10, 10)
     fw = _folded(16, spec)
-    before = k3.inception_module_fused.launches
-    for avg_tail in (False, True):
-        got = k3.inception_module_fused(x, fw, spec, avg_tail=avg_tail)
-        want = inception.inception_plain(x, fw, spec, avg_tail=avg_tail)
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert got.shape == (2, 3, 40)
-    assert k3.inception_module_fused.launches == before
+    before = (k3.inception_module_fused.launches,
+              k3.inception_module_fused.pool_in_launches)
+    for pool_in in (None, ((3, 3, 3), (1, 2, 2))):
+        for avg_tail in (False, True):
+            got = k3.inception_module_fused(x, fw, spec, avg_tail=avg_tail,
+                                            pool_in=pool_in)
+            want = inception.inception_plain(x, fw, spec, avg_tail=avg_tail,
+                                             pool_in=pool_in)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert got.shape == (2, 3, 40)
+    assert k3.inception_module_fused(
+        x, fw, spec, pool_in=((1, 3, 3), (1, 2, 2))).shape == (2, 40, 4, 5, 5)
+    assert (k3.inception_module_fused.launches,
+            k3.inception_module_fused.pool_in_launches) == before
+
+
+@pytest.mark.parametrize("pool_in,shape", [
+    (((1, 3, 3), (1, 1, 1)), (1, 16, 4, 10, 10)),    # stride
+    (((1, 3, 3), (2, 2, 2)), (1, 16, 4, 10, 10)),    # temporal stride
+    (((1, 3, 2), (1, 2, 2)), (1, 16, 4, 10, 10)),    # k_h != k_w
+    (((1, 4, 4), (1, 2, 2)), (1, 16, 4, 12, 12)),    # k not in {2, 3}
+    (((4, 3, 3), (1, 2, 2)), (1, 16, 4, 10, 10)),    # k_t not in {1, 2, 3}
+    (((2, 2, 2), (1, 2, 2)), (1, 16, 4, 7, 7)),      # odd pre-pool map
+    (((1, 3, 3), (1, 2, 2)), (1, 16, 4, 10, 9))])    # odd W
+def test_inception_wrapper_raises_on_pool_in_it_does_not_take(pool_in,
+                                                              shape):
+    """On any device the wrapper takes only the pools ``pool_absorbable``
+    accepts, the JAX wrapper's asserts; it never pools quietly."""
+    spec = (8, 16, 8, 8, 16, 8)
+    x, fw = _relu_input(*shape), _folded(16, spec)
+    assert not k3.pool_absorbable(pool_in, x.shape)
     with pytest.raises(ValueError, match="pool prologue"):
-        k3.inception_module_fused(x, fw, spec,
-                                  pool_in=((1, 3, 3), (1, 2, 2)))
+        k3.inception_module_fused(x, fw, spec, pool_in=pool_in)
+    assert k3.pool_absorbable(((1, 3, 3), (1, 2, 2)), (1, 16, 4, 10, 10))
+    assert not k3.pool_absorbable(None, x.shape)
+    assert k3._ABSORB_POOLS is False
 
 
 def test_inception_wrapper_refuses_what_the_kernel_does_not_take():
@@ -433,7 +498,160 @@ def test_inception_kernel_raises_on_inputs_it_does_not_take(cuda_device):
         k3.inception_module_fused(x.double(), fw, spec)
     with pytest.raises(ValueError):
         k3.inception_module_fused(x.contiguous(), fw, spec)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # an odd (5 x 5) pre-pool map
         k3.inception_module_fused(x, fw, spec, pool_in=((1, 3, 3), (1, 2, 2)))
     with pytest.raises(ValueError):
         k3.inception_module_fused(x[:, :, :1], fw, spec, avg_tail=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name,c,hw,spec,pool_in", _ABSORBED,
+                         ids=[s[0] for s in _ABSORBED])
+def test_inception_pool_in_matches_plain_on_card(name, c, hw, spec, pool_in,
+                                                 dtype, tol, cuda_device,
+                                                 no_tf32):
+    """The three absorbed modules on their real pre-pool maps (56, 28 and
+    14), N = 2 clips, T = 8: relative to max |plain|, 5e-5 in f32 (TF32
+    off), 1e-2 in bf16; one launch counted, with pool_in."""
+    x = _relu_input(2, c, 8, hw, hw, seed=8).to(cuda_device, dtype)
+    fw = inception.FoldedInception(
+        *(a.to(cuda_device) for a in _folded(c, spec, dtype, seed=9)))
+    before = (k3.inception_module_fused.launches,
+              k3.inception_module_fused.pool_in_launches)
+    got = k3.inception_module_fused(x, fw, spec, pool_in=pool_in)
+    torch.cuda.synchronize()
+    assert (k3.inception_module_fused.launches,
+            k3.inception_module_fused.pool_in_launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    want = inception.inception_plain(x, fw, spec, pool_in=pool_in)
+    assert got.shape == want.shape == (2, module_channels(spec), 8, hw // 2,
+                                       hw // 2)
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# pool + 1x1 (K4)
+# ---------------------------------------------------------------------------
+def _normal_input(n, c, t, h, w, seed=0):
+    """x ~ N(0, 1), any sign, (N, C, T, H, W) in channels-last memory."""
+    x = np.random.default_rng(seed).normal(size=(n, t, h, w, c)).astype(
+        np.float32)
+    return torch.from_numpy(x).permute(0, 4, 1, 2, 3)
+
+
+def _k4_weight(c, co, seed=0):
+    return torch.from_numpy((0.1 * np.random.default_rng(seed).normal(
+        size=(c, co))).astype(np.float32))
+
+
+def _emulate_pool1x1_kernel(x, k):
+    """csrc/pool1x1.cu in float64 numpy: ``load_a``'s kPoolGemm gather under
+    kNegInf (start from the row itself, skip the 26 neighbours past the map:
+    -inf padding, over rows +- H W, W, 1) and the epilogue's plain cast."""
+    n, c, t, h, w = x.shape
+    rows = n * t * h * w
+    xr = x.permute(0, 2, 3, 4, 1).reshape(rows, c).double().numpy()
+    r = np.arange(rows)
+    rt, rh, rw = (r // (h * w)) % t, (r // w) % h, r % w
+    pooled = xr.copy()
+    for tap in range(27):
+        dt, dh, dw = tap // 9 - 1, (tap // 3) % 3 - 1, tap % 3 - 1
+        ok = ((0 <= rt + dt) & (rt + dt < t) & (0 <= rh + dh) & (rh + dh < h)
+              & (0 <= rw + dw) & (rw + dw < w))
+        nb = np.clip(r + (dt * h + dh) * w + dw, 0, rows - 1)
+        pooled = np.where(ok[:, None], np.maximum(pooled, xr[nb]), pooled)
+    out = (pooled @ k.double().numpy()).astype(np.float32)
+    return out.reshape(n, t, h, w, -1).transpose(0, 4, 1, 2, 3)
+
+
+@pytest.mark.parametrize("shape,co", [((2, 16, 4, 6, 6), 8),
+                                      ((1, 32, 8, 14, 14), 16),
+                                      ((2, 24, 3, 5, 7), 16)])
+def test_pool1x1_kernel_algorithm_matches_plain(shape, co):
+    """K4's arithmetic (emulated, f64) against the plain version (f32) on
+    inputs of both signs, where -inf and zero padding differ: atol 1e-5
+    relative to max |plain|. The first two are the TPU tool's check
+    shapes; H != W catches a swapped stride."""
+    x, k = _normal_input(*shape, seed=10), _k4_weight(shape[1], co, seed=11)
+    want = pool3_1x1_plain(x, k).numpy()
+    got = _emulate_pool1x1_kernel(x, k)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_pool1x1_cpu_dispatch_uses_plain_and_does_not_count():
+    x, k = _normal_input(2, 16, 4, 5, 6, seed=12), _k4_weight(16, 8)
+    before = k4.pool3_1x1.launches
+    got = k4.pool3_1x1(x, k)
+    assert k4.pool3_1x1.launches == before
+    torch.testing.assert_close(got, pool3_1x1_plain(x, k), rtol=0, atol=0)
+    assert got.shape == (2, 8, 4, 5, 6) and got.dtype == torch.float32
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+
+
+def test_pool1x1_wrapper_refuses_what_the_kernel_does_not_take():
+    """The checks the wrapper makes before a launch, on CPU tensors."""
+    x, k = _normal_input(1, 16, 4, 5, 5), _k4_weight(16, 8)
+    k4._check(x, k)   # takes the good case
+    with pytest.raises(TypeError):
+        k4._check(x.double(), k.double())
+    with pytest.raises(ValueError, match="channels_last_3d"):
+        k4._check(x.contiguous(), k)
+    with pytest.raises(ValueError, match="k must be"):
+        k4._check(x, k.bfloat16())
+    with pytest.raises(ValueError, match="k must be"):
+        k4._check(x, _k4_weight(8, 8))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        k4._check(x, _k4_weight(16, 12))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        k4._check(_normal_input(1, 12, 4, 5, 5), _k4_weight(12, 8))
+
+
+# the TPU tool's six timed shapes (N, T, H, W, C) -> Co, at N = 2 clips
+_K4_SHAPES = (((2, 8, 14, 14, 512), 64), ((2, 4, 7, 7, 832), 128),
+              ((2, 8, 28, 28, 256), 64), ((2, 8, 14, 14, 480), 64),
+              ((2, 8, 14, 14, 528), 128), ((2, 8, 28, 28, 192), 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape,co", _K4_SHAPES,
+                         ids=[f"{s[2]}x{s[3]}x{s[4]}-{co}"
+                              for s, co in _K4_SHAPES])
+def test_pool1x1_kernel_matches_plain_on_card(shape, co, dtype, tol,
+                                              cuda_device, no_tf32):
+    """K4 at the TPU tool's timed shapes (the 28 x 28 x 256 and C = 832
+    ones did not compile on the TPU), inputs of both signs: relative to max
+    |plain|, 1e-5 in f32 (TF32 off), 1e-2 in bf16; one launch counted."""
+    n, t, h, w, c = shape
+    x = _normal_input(n, c, t, h, w, seed=13).to(cuda_device, dtype)
+    k = _k4_weight(c, co, seed=14).to(cuda_device, dtype)
+    before = k4.pool3_1x1.launches
+    got = k4.pool3_1x1(x, k)
+    torch.cuda.synchronize()
+    assert k4.pool3_1x1.launches == before + 1
+    want = pool3_1x1_plain(x, k)
+    assert got.shape == want.shape == (n, co, t, h, w)
+    assert got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_pool1x1_kernel_raises_on_inputs_it_does_not_take(cuda_device):
+    x = _normal_input(1, 16, 4, 5, 5).to(cuda_device)
+    k = _k4_weight(16, 8).to(cuda_device)
+    with pytest.raises(TypeError):
+        k4.pool3_1x1(x.double(), k.double())
+    with pytest.raises(ValueError):
+        k4.pool3_1x1(x.contiguous(), k)
+    with pytest.raises(ValueError):
+        k4.pool3_1x1(x, k.cpu())
+    with pytest.raises(ValueError):
+        k4.pool3_1x1(x, _k4_weight(16, 12).to(cuda_device))
