@@ -7,13 +7,16 @@ Phases, each printing one JSON record per line with its seconds; any
 failure raises and the script exits non-zero:
 
 1. device and build: the card's name and power limit, nvcc build seconds
-   of the four kernel sources and their ptxas lines;
+   of the four kernel sources, their ptxas lines and registers per kernel;
 2. kernels against their plain PyTorch versions on the card (TF32 off):
    log-mel at N=128 (f32, atol 5e-5); attention at the serving path's four
    shapes in f32 (atol 2e-5) and bf16 (atol 1e-2) plus head_dim 64,
-   Lq != Lk and L = 128 shapes; the inception module (K3) at all nine
+   Lq != Lk and L = 128 shapes, at the four served shapes in bf16 also the
+   device-only time of K2 and of SDPA (torch.profiler's self device time
+   per call) beside the CUDA-events time; the inception module (K3) at all nine
    module specs of the I3D, 16 clips x T 8, f32 (5e-5 of max |plain|) and
-   bf16 (1e-2), then timed at 128 clips in bf16; K3 with ``pool_in`` at the
+   bf16 (1e-2), then timed at 128 clips in bf16 (and each of its
+   launches by torch.profiler); K3 with ``pool_in`` at the
    three absorbed modules (Mixed_3b, 4b, 5b on the pre-pool maps of
    MaxPool3d_3a, 4a, 5a), the same tolerances, timed beside the port's
    unfused module and the K3 launch without ``pool_in``, each after
@@ -139,16 +142,57 @@ def phase(name: str):
     emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
 
 
-def phase_build():
+def phase_build() -> dict:
+    """Build the kernel sources; returns the registers of each compiled
+    kernel (its mangled name) by source, from ptxas's report."""
     from jmt_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
     paths = build.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in
-                    p.with_suffix(".log").read_text().splitlines()
-                    if "Used" in ln or "spill" in ln]
-             for name, p in paths.items()}
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    ptxas, registers = {}, {}
+    for name, p in paths.items():
+        lines = p.with_suffix(".log").read_text().splitlines()
+        ptxas[name] = [ln.strip() for ln in lines
+                       if "Used" in ln or "spill" in ln or "arning" in ln]
+        fn, registers[name] = None, {}
+        for ln in lines:
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1]
+            elif "Used" in ln and "registers" in ln and fn:
+                registers[name][fn] = int(ln.split("Used")[1].split()[0])
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
+          "registers": registers})
+    return registers
+
+
+def launch_ms(fn, reps: int = 3) -> list:
+    """Device ms of each kernel of one fn() call, in launch order, from
+    torch.profiler over reps calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    per_call = len(events) // reps
+
+    def short(name: str) -> str:
+        name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+        return name.split("(")[0].split("<")[0].split("::")[-1]
+
+    return [[short(events[i].name),
+             sum(events[i + j * per_call].device_time_total
+                 for j in range(reps)) / reps / 1e3]
+            for i in range(per_call)]
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device-only time of one fn() call: the device time of every kernel
+    it launches, from torch.profiler, over reps calls."""
+    return sum(ms for _, ms in launch_ms(fn, reps))
 
 
 def check_mel(gen: torch.Generator) -> dict:
@@ -212,7 +256,8 @@ def check_attention(gen: torch.Generator) -> dict:
     peak = {torch.float32: F32_PEAK_FLOPS, torch.bfloat16: BF16_PEAK_FLOPS}
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     path = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "bytes_ms": 0.0, "ops_ms": 0.0}
+            "bytes_ms": 0.0, "ops_ms": 0.0, "device_ms": 0.0,
+            "library_device_ms": 0.0}
     shapes = list(ATTN_PATH_SHAPES) + [s + (0,) for s in ATTN_EXTRA_SHAPES]
     for dtype in (torch.float32, torch.bfloat16):
         for name, bh, lq, lk, d, per_fwd in shapes:
@@ -240,9 +285,16 @@ def check_attention(gen: torch.Generator) -> dict:
                    "library_ms": time_ms(library),
                    "bound_ms": b_ms, "bound_by": b_by,
                    "launches_per_forward": per_fwd}
+            if dtype == torch.bfloat16 and per_fwd:
+                # the served shapes: device-only time beside the events
+                # time (which counts the host's issue rate as well)
+                rec["device_ms"] = device_ms(
+                    lambda: fa.fused_attention(q, k, v))
+                rec["library_device_ms"] = device_ms(library)
             emit({"phase": "kernel", "kernel": "fused_attention", **rec})
             if dtype == torch.bfloat16 and per_fwd:
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "device_ms", "library_device_ms"):
                     path[key] += per_fwd * rec[key]
                 path["bytes_ms"] += per_fwd * n_bytes / HBM_BYTES_PER_S * 1e3
                 path["ops_ms"] += per_fwd * flops / peak[dtype] * 1e3
@@ -251,11 +303,15 @@ def check_attention(gen: torch.Generator) -> dict:
             "replaces": "jmt_tpu/ops/pallas/fused_attention.py:66",
             "dtype": "bfloat16",
             "timing": "sum over the 12 launches of one bucket-8 flagship "
-                      "forward",
+                      "forward; ms and library_ms by CUDA events over 50 "
+                      "back-to-back calls, device_ms and library_device_ms "
+                      "the kernels' self device time (torch.profiler)",
             "max_abs_err": worst[torch.float32],
             "max_abs_err_bf16": worst[torch.bfloat16],
             "ms": path["ms"], "plain_ms": path["plain_ms"],
             "library_ms": path["library_ms"], "bound_ms": path["bound_ms"],
+            "device_ms": path["device_ms"],
+            "library_device_ms": path["library_device_ms"],
             "bound_by": ("bytes" if path["bytes_ms"] >= path["ops_ms"]
                          else "operations")}
 
@@ -370,6 +426,8 @@ def check_inception(gen: torch.Generator, absorbed: bool = False) -> dict:
             if absorbed:
                 rec["k3_after_pool_ms"] = time_ms(k3_after_pool, iters=10,
                                                   warmup=2)
+            rec["launch_ms"] = launch_ms(lambda: inception_module_fused(
+                x, fw, spec, **kw))
         rec.update({"clips": 128, "gflop": flops / 1e9, "bound_ms": b_ms,
                     "bound_by": b_by,
                     "tflops": flops / rec["ms"] / 1e9})
@@ -758,7 +816,7 @@ def main() -> int:
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
     with phase("build"):
-        phase_build()
+        registers = phase_build()
     gen = torch.Generator().manual_seed(0)
     with phase("kernels"), full_fp32():
         kernels = [check_mel(gen), check_attention(gen),
@@ -790,6 +848,12 @@ def main() -> int:
         k3_pool_in, launches=absorbed["inception_module_fused"],
         pool_in_launches=absorbed["inception_pool_in"],
         launches_of="the flagship_absorbed run (3 forwards)")
+    kernels[2]["registers"] = {
+        "bf16 (igemm_sm90)": max((v for f, v in registers["inception"].items()
+                                  if "igemm_sm90" in f), default=None),
+        "f32 (inception_gemm)": max((v for f, v in
+                                     registers["inception"].items()
+                                     if "inception_gemm" in f), default=None)}
     kernels.append(k4)
     print(smi)
     emit({"kernels": kernels})

@@ -8,21 +8,47 @@
 //
 // The TPU gate (jmt_tpu/ops/attention.py, _pallas_ok) admitted only
 // head_dim <= 256: a VMEM/tiling limit of the TPU's Mosaic lowering, not a
-// property of the function. With one head at E = 512 (the flagship), every
-// attention fell back to XLA there. This kernel keeps only the scores in
-// shared memory (Lq x Lk f32, at most 64 KB) and streams q, k, v from
-// L2/L1, so head_dim = 512 costs no shared memory and the port's gate is
-// Lq, Lk <= 128, D <= 512.
+// property of the function. The port's gate is Lq, Lk <= 128, D <= 512.
 //
-// What bounds it on an H100: the fusion stack's problems are tiny (L = 2,
-// 6, 16 tokens, D = 512), so bytes bound it (q, k, v read once, out written
-// once, about 3 flops per byte in bf16), and at these sizes in practice the
-// launch and the few serial steps inside a block. The design answers with
-// one launch for all BH problems, one block per problem, and no round trip
-// of scores or probabilities through device memory.
+// What bounds it on an H100: the served problems are tiny (L = 2, 6 or 16
+// tokens, D = 512, BH 8 to 128), so bytes bound it (q, k, v read once, out
+// written once, about 3 flops per byte in bf16): a few MB, about a
+// microsecond at 3.35 TB/s. In practice the launch, the host's call path
+// and the serial steps inside a block set the time.
+//
+// The design, for the served shapes first:
+// - Spread over the card: grid (BH, S). Block (b, s) owns the D slice s of
+//   problem b's output and recomputes the (cheap) scores itself, so a
+//   problem is spread over S blocks without a second pass or atomics. S is
+//   picked so that about two blocks per SM are in flight (BH 8 and 16: S 8,
+//   64-wide slices; BH 128: S 3) and so that no thread owns more than
+//   kItems output vectors. Packing several L = 2 problems into one block
+//   was the other choice; splitting D needs no cross-problem indexing and
+//   helps every served shape.
+// - Staging: q and k are copied into shared memory a 16-row tile at a time
+//   over the whole of D, with 16-byte cp.async and zero fill past Lq, Lk
+//   (bf16 at L = 16, D = 512: 16 KB each), rows padded by 16 bytes so that
+//   eight rows fall in eight bank groups. Above 16 tokens the tiles stream:
+//   each (16 x 16) score tile stages its own q and k rows, so shared memory
+//   stays within 138 KB up to the gate's L = 128, D = 512 in f32.
+// - Scores: the 8 warps split D into 8 contiguous ranges; a lane holds a
+//   2 x 4 patch of the 16 x 16 score tile and runs f32 FMA over its warp's
+//   range from 16-byte shared-memory vectors (full fp32, no TF32 and no
+//   tensor cores: the f32 tolerance is 2e-5, and at 16 x 16 x 512 the FMAs
+//   take less than the staging). The 8 partial sums are added in warp order
+//   in shared memory.
+// - Softmax as the TPU kernel casts it (one warp per row); P rounded to v's
+//   dtype and kept in shared memory as f32.
+// - P.V: v's slice is staged 16 rows at a time in the k buffer; a thread
+//   owns up to kItems (row, 16-byte vector) outputs, accumulates in f32
+//   over j in order and stores 16-byte vectors.
+// Rows not 16-byte aligned (D not a multiple of 8 in bf16 or 4 in f32, or
+// an unaligned pointer) take the same kernel with scalar staging and
+// stores (template argument kVec).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
@@ -30,7 +56,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxL = 128;
 constexpr int kMaxD = 512;
-constexpr int kRows = 16;  // query rows accumulated in registers at once
+constexpr int kTile = 16;       // score tile: kTile query x kTile key rows
+constexpr int kItems = 4;       // P.V output vectors per thread at most
+constexpr int kTargetBlocks = 264;  // two per SM of an H100
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -45,32 +73,145 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch casts
 }
 
-// One block per problem. Dynamic shared memory: Lq * Lk f32 scores.
+template <typename T> struct Vec {
+  static constexpr int N = 16 / sizeof(T);  // elements in 16 bytes
+};
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// 16-byte cp.async; src-size 0 zero-fills (rows past L)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copy rows [r0, r0 + kTile) x columns [c0, c0 + w) of the (l, d) matrix g
+// into dst (kTile rows, pitch elements); rows >= l and columns >= d are
+// zero. kVec: w, d and the pointers are 16-byte multiples.
+template <typename T, bool kVec>
+__device__ __forceinline__ void stage(T* dst, int pitch, const T* g, int l,
+                                      int d, int r0, int c0, int w) {
+  constexpr int V = Vec<T>::N;
+  const int wr = round_up(w, V);
+  if constexpr (kVec) {
+    const int nv = wr / V;
+    for (int t = threadIdx.x; t < kTile * nv; t += kThreads) {
+      const int r = t / nv, c = (t - r * nv) * V;
+      const bool ok = r0 + r < l;
+      cp_async16(dst + r * pitch + c,
+                 ok ? g + (size_t)(r0 + r) * d + c0 + c : g, ok);
+    }
+    cp_async_wait_all();
+  } else {
+    for (int t = threadIdx.x; t < kTile * wr; t += kThreads) {
+      const int r = t / wr, c = t - r * wr;
+      dst[r * pitch + c] = (r0 + r < l && c0 + c < d && c < w)
+                               ? g[(size_t)(r0 + r) * d + c0 + c]
+                               : from_f<T>(0.0f);
+    }
+  }
+}
+
 template <typename T>
+__device__ __forceinline__ void load_vec(float* out, const T* p) {
+  constexpr int V = Vec<T>::N;
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < V; ++i) out[i] = to_f(e[i]);
+}
+
+// Shared memory: qs and ks (kTile x pitch each; ks also holds the v
+// chunks), the warps' partial scores (kWarps x kTile^2 f32), the scores
+// (lq x lk f32).
+template <typename T>
+__host__ __device__ constexpr int pitch_of(int d) {
+  return round_up(d, 16 / (int)sizeof(T)) + 16 / (int)sizeof(T);
+}
+template <typename T>
+__host__ __device__ constexpr size_t smem_bytes(int lq, int lk, int d) {
+  return 2 * sizeof(T) * kTile * pitch_of<T>(d) +
+         sizeof(float) * (kWarps * kTile * kTile + lq * lk);
+}
+
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int lq, int lk,
-                 int d) {
-  extern __shared__ float s[];
+                 int d, int slice) {
+  constexpr int V = Vec<T>::N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int pitch = pitch_of<T>(d);
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + kTile * pitch;
+  float* part = reinterpret_cast<float*>(ks + kTile * pitch);
+  float* s = part + kWarps * kTile * kTile;
+
   const size_t b = blockIdx.x;
   q += b * lq * d;
   k += b * lk * d;
   v += b * lk * d;
   o += b * lq * d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // scores: one warp per (i, j) dot product, lanes stride over D
-  for (int t = warp; t < lq * lk; t += kWarps) {
-    const int i = t / lk, j = t - i * lk;
-    const T* qi = q + (size_t)i * d;
-    const T* kj = k + (size_t)j * d;
-    float acc = 0.0f;
-    for (int e = lane; e < d; e += 32) acc = fmaf(to_f(qi[e]), to_f(kj[e]), acc);
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) s[t] = acc;
+  // scores, one 16 x 16 tile at a time; warp w sums D range
+  // [w dw, (w + 1) dw); lane rows ri, ri + 8, columns cj + 4 c
+  const int dr = round_up(d, V);
+  const int dw = round_up((dr + kWarps - 1) / kWarps, V);
+  const int e0 = warp * dw, e1 = min(dr, e0 + dw);
+  const int ri = lane >> 2, cj = lane & 3;
+  for (int i0 = 0; i0 < lq; i0 += kTile) {
+    stage<T, kVec>(qs, pitch, q, lq, d, i0, 0, d);
+    for (int j0 = 0; j0 < lk; j0 += kTile) {
+      stage<T, kVec>(ks, pitch, k, lk, d, j0, 0, d);
+      __syncthreads();
+      float acc[2][4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
+      for (int e = e0; e < e1; e += V) {
+        float qv[2][V], kv[4][V];
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+          load_vec<T>(qv[a], qs + (ri + 8 * a) * pitch + e);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          load_vec<T>(kv[c], ks + (cj + 4 * c) * pitch + e);
+#pragma unroll
+        for (int x = 0; x < V; ++x)
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[a][c] = fmaf(qv[a][x], kv[c][x], acc[a][c]);
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          part[warp * kTile * kTile + (ri + 8 * a) * kTile + cj + 4 * c] =
+              acc[a][c];
+      __syncthreads();
+      {
+        const int i = tid / kTile, j = tid - i * kTile;
+        if (i0 + i < lq && j0 + j < lk) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) sum += part[w * kTile * kTile + tid];
+          s[(i0 + i) * lk + j0 + j] = sum;
+        }
+      }
+      __syncthreads();
+    }
   }
-  __syncthreads();
 
   // softmax: one warp per row, f32, max-subtracted; P rounded to T
   for (int i = warp; i < lq; i += kWarps) {
@@ -89,41 +230,99 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sum += __shfl_xor_sync(0xffffffffu, sum, off);
     for (int j = lane; j < lk; j += 32) row[j] = to_f(from_f<T>(row[j] / sum));
   }
-  __syncthreads();
 
-  // P.V: each thread owns output columns; kRows query rows per sweep of v
-  for (int e = threadIdx.x; e < d; e += kThreads) {
-    for (int i0 = 0; i0 < lq; i0 += kRows) {
-      float acc[kRows];
+  // P.V over this block's slice [c0, c0 + w) of D, v staged 16 rows at a
+  // time; thread item m is output vector tid + m kThreads: row i, vector cv
+  const int c0 = blockIdx.y * slice, w = min(slice, d - c0);
+  const int nv = round_up(w, V) / V, n_items = lq * nv;
+  float acc[kItems][V];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      for (int j = 0; j < lk; ++j) {
-        const float vj = to_f(v[(size_t)j * d + e]);
+  for (int m = 0; m < kItems; ++m)
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          if (i0 + r < lq) acc[r] = fmaf(s[(i0 + r) * lk + j], vj, acc[r]);
+    for (int x = 0; x < V; ++x) acc[m][x] = 0.0f;
+  for (int j0 = 0; j0 < lk; j0 += kTile) {
+    __syncthreads();  // softmax done / the previous chunk consumed
+    stage<T, kVec>(ks, pitch, v, lk, d, j0, c0, w);
+    __syncthreads();
+    const int jn = min(kTile, lk - j0);
+#pragma unroll
+    for (int m = 0; m < kItems; ++m) {
+      const int item = tid + m * kThreads;
+      if (item < n_items) {
+        const int i = item / nv, cv = item - i * nv;
+        for (int jj = 0; jj < jn; ++jj) {
+          const float p = s[i * lk + j0 + jj];
+          float vv[V];
+          load_vec<T>(vv, ks + jj * pitch + cv * V);
+#pragma unroll
+          for (int x = 0; x < V; ++x) acc[m][x] = fmaf(p, vv[x], acc[m][x]);
+        }
       }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (i0 + r < lq) o[(size_t)(i0 + r) * d + e] = from_f<T>(acc[r]);
     }
   }
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    const int item = tid + m * kThreads;
+    if (item >= n_items) continue;
+    const int i = item / nv, cv = item - i * nv;
+    T* dst = o + (size_t)i * d + c0 + cv * V;
+    if constexpr (kVec) {
+      uint4 raw;
+      T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int x = 0; x < V; ++x) e[x] = from_f<T>(acc[m][x]);
+      *reinterpret_cast<uint4*>(dst) = raw;
+    } else {
+#pragma unroll
+      for (int x = 0; x < V; ++x)
+        if (cv * V + x < w) dst[x] = from_f<T>(acc[m][x]);
+    }
+  }
+}
+
+// The D slice of one block: at least one 16-byte vector, few enough
+// vectors that lq x (vectors) <= kThreads x kItems, and about
+// kTargetBlocks blocks in all.
+template <typename T>
+int slice_of(int bh, int lq, int d) {
+  constexpr int V = Vec<T>::N;
+  const int nvec = (d + V - 1) / V;
+  const int max_vec = kThreads * kItems / lq;  // lq <= 128: >= 8
+  // spread: about kTargetBlocks blocks, slices of 64 elements or more
+  int split = (kTargetBlocks + bh - 1) / bh;
+  const int most = (d + 63) / 64;
+  split = split < most ? split : most;
+  const int need = (nvec + max_vec - 1) / max_vec;
+  split = split > need ? split : need;
+  return ((nvec + split - 1) / split) * V;
+}
+
+template <typename T, bool kVec>
+int launch_as(const void* q, const void* k, const void* v, void* o, int bh,
+              int lq, int lk, int d, cudaStream_t s) {
+  static bool attr_set = false;  // raise the dynamic shared memory limit once
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        attention_kernel<T, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<T>(kMaxL, kMaxL, kMaxD));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int slice = slice_of<T>(bh, lq, d);
+  const dim3 grid(bh, (d + slice - 1) / slice);
+  attention_kernel<T, kVec><<<grid, kThreads, smem_bytes<T>(lq, lk, d), s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lq, lk, d, slice);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int lq, int lk, int d, cudaStream_t s) {
-  const size_t smem = sizeof(float) * lq * lk;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(float) * kMaxL * kMaxL));
-    if (e != cudaSuccess) return (int)e;
-  }
-  attention_kernel<T><<<bh, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lq, lk, d);
-  return (int)cudaGetLastError();
+  const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                        (uintptr_t)o | (uintptr_t)(d * sizeof(T));
+  return any % 16 == 0 ? launch_as<T, true>(q, k, v, o, bh, lq, lk, d, s)
+                       : launch_as<T, false>(q, k, v, o, bh, lq, lk, d, s);
 }
 
 }  // namespace

@@ -24,18 +24,30 @@
 // input and output each, so the tensor cores set the least time (about
 // 4.9 ms at 989 TFLOP/s bf16), not the 3.35 TB/s of HBM.
 //
-// The design answers with implicit GEMMs on the tensor cores (bf16 in, f32
-// accumulate through nvcuda::wmma; the f32 path is full-fp32 FMA, no TF32,
-// for parity) and keeps the two im2col tensors and the pooled x out of
-// device memory: the 3x3x3 taps and the pool are gathered while a tile of
-// A is loaded into shared memory, with bounds-checked zero fill giving the
-// SAME padding. Two launches: the merged 1x1 GEMM (writing b0 and the
-// relu'd branch-a activations to a scratch tensor), then b1b, b2b and b3 as
-// three problems of one grid; avg_tail adds per-(n, t) sums by atomicAdd
-// in the epilogues and a small last pass. The TPU's halo tiles, merged-row
-// layout and H-tile table answered a 16 MB VMEM and XLA fusion seams and
-// are not carried over. Tiles are 128 x 128, double-buffered through
-// registers (implicit_gemm.cuh); wgmma, TMA and persistence are later work.
+// The design answers with implicit GEMMs that keep the two im2col tensors
+// out of device memory (on the f32 path the pooled x too): the 3x3x3 taps
+// (and there the pool) are gathered while a tile of A is written into
+// shared memory, with zero fill giving the SAME padding. Two GEMM
+// launches: the merged 1x1 GEMM (writing b0 and the relu'd branch-a
+// activations to a scratch tensor), then b1b, b2b and b3 as three problems
+// of one grid; avg_tail adds per-(n, t) sums by atomicAdd in the
+// epilogues and a small last pass. The TPU's halo tiles, merged-row layout
+// and H-tile table answered a 16 MB VMEM and XLA fusion seams and are not
+// carried over.
+//
+// The launches dispatch on dtype:
+// - bf16, the served path: the Hopper pipeline of igemm_sm90.cuh (TMA for
+//   the weights, cp.async or register gathers for A into a ring of 3 to 8
+//   stages, warp-specialised wgmma, persistent blocks, 16-byte stores and
+//   per-warp avg_tail sums). One block covers up to 512 columns, so the
+//   merged 1x1 GEMM gathers each row (and pool_in's window) once at every
+//   module but Mixed_5c (N = 624: two column tiles); the second launch
+//   lists b1b's long-K tiles first, then b2b's and b3's. b3's 3x3x3 pool
+//   is a pass of its own (pool3x3x3) into a scratch of N*T*H*W*C, and b3
+//   a 1x1 GEMM over it: three launches, four with avg_tail.
+// - f32, the parity path (full fp32, no TF32, as the tolerance 5e-5
+//   needs): implicit_gemm.cuh's FMA tiles of 128 x 128, double-buffered
+//   through registers, one grid sized by the widest problem.
 //
 // pool_in: the first launch gathers each A row as the max over its
 // pre-pool window (kt * k * k loads of 16 bytes), so the pooled map needs
@@ -46,9 +58,9 @@
 // column-tile-0 blocks of the first launch also write the pooled rows
 // (N*T*H*W*C in the working dtype, a quarter of the pre-pool bytes) to a
 // scratch tensor, and b3 reads it as it reads x without pool_in. The
-// cost: that write and its read back, and the pre-pool window gathered
-// again by each of the first launch's column tiles (2 to 4).
-#include "implicit_gemm.cuh"
+// cost: that write and its read back (on the f32 path also the pre-pool
+// window gathered again by each of the first launch's column tiles).
+#include "igemm_sm90.cuh"
 
 namespace {
 
@@ -64,6 +76,33 @@ __global__ void avg_tail_finish(const float* __restrict__ sums,
   const size_t tt = r % (t - 1), nn = r / (t - 1);
   const float* s = sums + (nn * t + tt) * co + c;
   out[i] = from_f<T>((s[0] + s[co]) * scale);
+}
+
+// b3's pool on the bf16 path, one pass ahead of the GEMMs: dst row r,
+// channels [8 v, 8 v + 8), is the 3x3x3 stride-1 max of src around r, with
+// zero padding (equal to -inf padding: src >= 0). One thread per 16-byte
+// vector, so that many warps hide the 27 loads' latency, which the GEMM's
+// four producer warps could not (measured).
+__global__ void pool3x3x3(const bf16* __restrict__ src, bf16* __restrict__ dst,
+                          int rows, int t, int h, int w, int c) {
+  const int nv = c / 8;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)rows * nv) return;
+  const int row = (int)(i / nv), k = (int)(i - (size_t)row * nv) * 8;
+  const int ww = row % w, hh = (row / w) % h, tt = (row / (h * w)) % t;
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);
+  for (int dt = -1; dt <= 1; ++dt) {
+    if (tt + dt < 0 || tt + dt >= t) continue;
+    for (int dh = -1; dh <= 1; ++dh) {
+      if (hh + dh < 0 || hh + dh >= h) continue;
+#pragma unroll
+      for (int dw = -1; dw <= 1; ++dw)
+        if (ww + dw >= 0 && ww + dw < w)
+          x = vmax<bf16>(x, ldg16(src + (size_t)(row + (dt * h + dh) * w + dw) *
+                                            c + k));
+    }
+  }
+  *reinterpret_cast<uint4*>(dst + (size_t)row * c + k) = x;
 }
 
 template <typename T>
@@ -93,29 +132,54 @@ int run(const void* x, void* out, void* scratch, void* pooled, float* sums,
   L.p[0].seg[1] = out_seg(scratch, nullptr, o0, o0 + o1, sa, 0, 1);
   L.p[0].seg[2] = out_seg(scratch, nullptr, o0 + o1, o0 + o1 + o3, sa, o1, 1);
   L.p[0].pool_dst = pooled;
-  dim3 grid1((L.rows + C::BM - 1) / C::BM, (o0 + o1 + o3 + C::BN - 1) / C::BN,
-             1);
-  if (pool_k)
-    inception_gemm<T, kPoolIn><<<grid1, kThreads, 0, stream>>>(L);
-  else
-    inception_gemm<T, kPlain><<<grid1, kThreads, 0, stream>>>(L);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e;
+  if constexpr (sizeof(T) == 2) {
+    e = (cudaError_t)sm90::launch(L, stream);
+  } else {
+    dim3 grid1((L.rows + C::BM - 1) / C::BM,
+               (o0 + o1 + o3 + C::BN - 1) / C::BN, 1);
+    if (pool_k)
+      inception_gemm<T, kPoolIn><<<grid1, kThreads, 0, stream>>>(L);
+    else
+      inception_gemm<T, kPlain><<<grid1, kThreads, 0, stream>>>(L);
+    e = cudaGetLastError();
+  }
   if (e != cudaSuccess) return (int)e;
 
   // 2) b1b, b2b (3x3x3 over the scratch) and b3 (pool + 1x1 over x, or
-  //    over the pooled rows with pool_in)
+  //    over the pooled rows with pool_in); in bf16 b3's pool is a pass of
+  //    its own into the pooled buffer (its second half with pool_in), and
+  //    b3 a 1x1 GEMM over it
+  L.pool_kt = L.pool_k = 0;  // pool_in is the first launch's alone
+  const void* b3_src = pool_k ? pooled : x;
+  int b3_mode = kPoolGemm;
+  if constexpr (sizeof(T) == 2) {
+    bf16* pool3 =
+        static_cast<bf16*>(pooled) + (pool_k ? (size_t)L.rows * c : 0);
+    const size_t vecs = (size_t)L.rows * (c / 8);
+    pool3x3x3<<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(
+        static_cast<const bf16*>(b3_src), pool3, L.rows, t, h, w, c);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    b3_src = pool3;
+    b3_mode = kGemm1x1;
+  }
   L.nprob = 3;
   L.p[0] = problem(scratch, kb1, bb1, kConv3x3x3, o1, sa, 0, o2,
                    out_seg(out, sums, 0, o2, co, o0, 0));
   L.p[1] = problem(scratch, kb2, bb2, kConv3x3x3, o3, sa, o1, o4,
                    out_seg(out, sums, 0, o4, co, o0 + o2, 0));
-  L.p[2] = problem(pool_k ? pooled : x, k3, b3, kPoolGemm, c, c, 0, o5,
+  L.p[2] = problem(b3_src, k3, b3, b3_mode, c, c, 0, o5,
                    out_seg(out, sums, 0, o5, co, o0 + o2 + o4, 0));
-  int widest = o2 > o4 ? o2 : o4;
-  widest = widest > o5 ? widest : o5;
-  dim3 grid2((L.rows + C::BM - 1) / C::BM, (widest + C::BN - 1) / C::BN, 3);
-  inception_gemm<T, kPlain><<<grid2, kThreads, 0, stream>>>(L);
-  e = cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    e = (cudaError_t)sm90::launch(L, stream);
+  } else {
+    int widest = o2 > o4 ? o2 : o4;
+    widest = widest > o5 ? widest : o5;
+    dim3 grid2((L.rows + C::BM - 1) / C::BM, (widest + C::BN - 1) / C::BN, 3);
+    inception_gemm<T, kPlain><<<grid2, kThreads, 0, stream>>>(L);
+    e = cudaGetLastError();
+  }
   if (e != cudaSuccess || sums == nullptr) return (int)e;
 
   // 3) avg_tail: (s[t] + s[t+1]) / (2 H W)
@@ -133,8 +197,9 @@ extern "C" {
 // map (N, T, 2H, 2W, C) of a (pool_kt, pool_k, pool_k) stride-(1, 2, 2)
 // TF-SAME max pool, pool_kt in {1, 2, 3}, pool_k in {2, 3}; H, W are the
 // module's (pooled) map. out (N, T, H, W, co) rows, or (N, T-1, co) with
-// avg_tail; scratch (N*T*H*W, o1+o3); pooled (N*T*H*W, C) with pool_k > 0
-// (else null); sums (N*T, co) f32 zeroed, used only with avg_tail (else
+// avg_tail; scratch (N*T*H*W, o1+o3); pooled (N*T*H*W, C) in bf16, twice
+// that with pool_k > 0 in bf16, (N*T*H*W, C) with pool_k > 0 in f32, else
+// null; sums (N*T, co) f32 zeroed, used only with avg_tail (else
 // null). Kernels k1 (C, o0+o1+o3), kb1 (27, o1, o2), kb2 (27, o3, o4), k3
 // (C, o5) in the working dtype, biases f32. dtype: 0 = float32,
 // 1 = bfloat16. All tensors contiguous.
@@ -152,6 +217,7 @@ int jmt_inception_module(const void* x, void* out, void* scratch,
   for (int i = 0; i < 6; ++i) ok = ok && o[i] > 0 && o[i] % 8 == 0;
   ok = ok && (pool_k == 0 || ((pool_k == 2 || pool_k == 3) && pool_kt >= 1 &&
                               pool_kt <= 3 && pooled));
+  ok = ok && (dtype == 0 || pooled);
   // rows are int (the pre-pool map's too), addresses 64-bit
   ok = ok && (long long)n * t * (2 * h) * (2 * w) < INT_MAX;
   if (!ok) return (int)cudaErrorInvalidValue;

@@ -11,6 +11,11 @@ TPU's ``head_dim <= 256``.
 ``fused_attention`` is the dispatcher: a CPU tensor goes to the plain
 version ``attention_plain``; a CUDA tensor goes to the kernel, or the call
 raises. ``fused_attention.launches`` counts kernel launches.
+
+The served problems take a few microseconds on the card, so the host's
+call path matters: the C function's argument types are bound once
+(``_kernel_fn``), the stream is read as a raw handle, and the device
+context is entered only when q lies on another device than the current.
 """
 from __future__ import annotations
 
@@ -34,16 +39,32 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(attn.float(), v.float()).to(v.dtype)
 
 
+_FN = None
+
+
+def _kernel_fn():
+    """``jmt_fused_attention`` of the built library, its argument types
+    bound once."""
+    global _FN
+    if _FN is None:
+        fn = build.load("fused_attention").jmt_fused_attention
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        _FN = fn
+    return _FN
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
             ) -> torch.Tensor:
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+    dtype = q.dtype
+    if not (dtype == k.dtype == v.dtype) or dtype not in _DTYPES:
         raise TypeError("attention kernel takes q, k, v of one dtype, "
                         f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if not (k.is_cuda and v.is_cuda and q.device == k.device == v.device):
+    device = q.device
+    if not (k.device == device and v.device == device):
         raise ValueError("attention kernel: q, k, v must be on one CUDA "
                          "device")
-    if not all(x.is_contiguous() for x in (q, k, v)):
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention kernel takes contiguous q, k, v")
     if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape:
         raise ValueError("attention kernel takes q (BH, Lq, D) and k, v "
@@ -59,15 +80,21 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"attention kernel takes BH >= 1, Lq, Lk <= "
                          f"{MAX_L}, D <= {MAX_D}; got BH={bh}, Lq={lq}, "
                          f"Lk={lk}, D={d}")
-    lib = build.load("fused_attention")
-    fn = lib.jmt_fused_attention
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _kernel_fn()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    index = device.index
+    if index == torch.cuda.current_device():
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    bh, lq, lk, d, _DTYPES[q.dtype], stream)
-    build.check(lib, status, "attention kernel")
+                    bh, lq, lk, d, _DTYPES[dtype],
+                    torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), bh, lq, lk, d, _DTYPES[dtype],
+                        torch._C._cuda_getCurrentRawStream(index))
+    if status:
+        build.check(build.load("fused_attention"), status,
+                    "attention kernel")
     fused_attention.launches += 1
     return out
 

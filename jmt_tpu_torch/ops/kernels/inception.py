@@ -4,12 +4,14 @@ Replaces the TPU kernel ``jmt_tpu/ops/inception_pallas.py``
 (``inception_module_fused``, body ``_kernel``): one I3D inception module
 with frozen BN folded into its weights (``ops/inception.py``
 ``fold_inception_weights``). The source note in ``csrc/inception.cu`` says
-what bounds it on an H100 and how its design answers that.
+what bounds it on an H100 and how its design answers that: bf16 runs on
+the Hopper pipeline of ``csrc/igemm_sm90.cuh`` (TMA, cp.async, wgmma),
+f32 (the parity path) on the FMA tiles of ``csrc/implicit_gemm.cuh``.
 
 ``inception_module_fused`` is the dispatcher: a CPU tensor goes to the plain
 version ``ops.inception.inception_plain``; a CUDA tensor goes to the kernel,
 or the call raises. ``inception_module_fused.launches`` counts wrapper calls
-that launched the kernel (one call makes two or three launches), and
+that launched the kernel (one call makes two to four launches), and
 ``inception_module_fused.pool_in_launches`` those among them with
 ``pool_in``.
 
@@ -96,7 +98,10 @@ def _launch(x: torch.Tensor, fw: FoldedInception, o: Sequence[int],
                           memory_format=torch.channels_last_3d, **kw)
         sums = None
     scratch = torch.empty(n * t * h * w, o1 + o3, **kw)
-    pooled = torch.empty(n * t * h * w, c, **kw) if pool_k else None
+    # pool_in's pooled rows (f32 and bf16), then in bf16 b3's 3x3x3 pool
+    n_pooled = bool(pool_k) + (x.dtype == torch.bfloat16)
+    pooled = (torch.empty(n_pooled * n * t * h * w, c, **kw) if n_pooled
+              else None)
     lib = build.load("inception")
     fn = lib.jmt_inception_module
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int

@@ -7,8 +7,9 @@ This file imports only torch, numpy and the port, so the tests marked
 
 On the CPU the card tests skip; what runs here is the wrappers' CPU
 dispatch and refusals, the kernels' host-side constants, and numpy
-emulations of the log-mel, inception (with its pool prologue) and pool +
-1x1 kernels' arithmetic held to the plain versions.
+emulations of the log-mel, attention, inception (with its pool prologue,
+and as the bf16 launches tile it) and pool + 1x1 kernels' arithmetic held
+to the plain versions.
 """
 import numpy as np
 import pytest
@@ -171,11 +172,21 @@ def test_attention_cpu_dispatch_uses_plain_and_does_not_count():
 @pytest.mark.parametrize("shape", [(128, 2, 2, 512), (8, 16, 16, 512),
                                    (16, 16, 16, 512), (128, 6, 6, 512),
                                    (64, 16, 16, 64), (4, 16, 128, 64),
-                                   (4, 128, 128, 512)])
+                                   (4, 128, 128, 512), (4, 1, 1, 512),
+                                   (3, 1, 7, 64), (2, 5, 3, 20),
+                                   "unaligned"])
 def test_attention_kernel_matches_plain_on_card(shape, dtype, atol,
                                                 cuda_device):
+    """The served shapes and the gate's edges; D = 20 and a q that starts
+    2 bytes past a 16-byte boundary take the scalar staging."""
+    unaligned = shape == "unaligned"
+    if unaligned:
+        shape = (8, 16, 16, 512)
     q, k, v = (torch.from_numpy(x).to(cuda_device, dtype)
                for x in _qkv(*shape, seed=3))
+    if unaligned:
+        q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
+        assert q.is_contiguous() and q.data_ptr() % 16
     v = 0.25 * v  # |out| < 1: one bf16 rounding step stays below atol
     before = fa.fused_attention.launches
     got = fa.fused_attention(q, k, v)
@@ -223,6 +234,107 @@ def test_attention_kernel_raises_on_inputs_it_does_not_take(cuda_device):
     wide = torch.zeros(1, 4, 1024, device=cuda_device)
     with pytest.raises(ValueError):
         fa.fused_attention(wide, wide, wide)
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """Round float32 values to bfloat16 (nearest even), kept as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _fma32(a, b, c):
+    """f32 fused multiply-add: the f32 product is exact in f64."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _emulate_attention_kernel(q, k, v, bf16: bool) -> np.ndarray:
+    """csrc/fused_attention.cu in numpy float32: the 8 warps' D ranges
+    (dw = round_up(ceil(round_up(D, V) / 8), V), V = 16 bytes of the
+    dtype), each an FMA chain over its range, the partials added in warp
+    order; softmax in f32 with max subtraction, P rounded to v's dtype;
+    P.V an FMA chain over j in order, rounded to v's dtype."""
+    bh, lq, d = q.shape
+    vec = 8 if bf16 else 4
+    dr = -(-d // vec) * vec
+    dw = -(-(-(-dr // 8)) // vec) * vec
+    scores = np.zeros((bh, lq, k.shape[1]), np.float32)
+    for w in range(8):
+        part = np.zeros_like(scores)
+        for e in range(w * dw, min(d, (w + 1) * dw)):
+            part = _fma32(q[:, :, e, None], k[:, None, :, e], part)
+        scores = scores + part
+    e = np.exp(scores - scores.max(-1, keepdims=True))
+    p = e / e.sum(-1, keepdims=True, dtype=np.float32)
+    p = _bf16(p) if bf16 else p.astype(np.float32)
+    out = np.zeros((bh, lq, d), np.float32)
+    for j in range(k.shape[1]):
+        out = _fma32(p[:, :, j, None], v[:, None, j, :], out)
+    return _bf16(out) if bf16 else out
+
+
+# the four served shapes (BH, Lq, Lk, D) and the gate's edges: L = 1,
+# Lq != Lk, L = 128, D = 64, a D that is no multiple of 16 bytes
+_ATTN_EMULATED = ((128, 2, 2, 512), (8, 16, 16, 512), (16, 16, 16, 512),
+                  (128, 6, 6, 512), (4, 1, 1, 512), (3, 1, 7, 64),
+                  (4, 16, 128, 64), (2, 128, 128, 512), (64, 16, 16, 64),
+                  (2, 5, 3, 20))
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", _ATTN_EMULATED,
+                         ids=["x".join(map(str, s)) for s in _ATTN_EMULATED])
+def test_attention_kernel_algorithm_matches_plain(shape, dtype, atol):
+    """K2's arithmetic (emulated) against the plain version on the same
+    inputs: f32 within 2e-5, bf16 within 1e-2 (|out| < 1)."""
+    q, k, v = _qkv(*shape, seed=4)
+    v = 0.25 * v
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        q, k, v = _bf16(q), _bf16(k), _bf16(v)
+    got = _emulate_attention_kernel(q, k, v, bf16)
+    want = fa.attention_plain(*(torch.from_numpy(x).to(dtype)
+                                for x in (q, k, v))).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+def test_attention_wrapper_sends_cpu_to_plain_without_the_library():
+    """CPU tensors never reach the kernel's wrapper: the plain version,
+    bitwise, no launch counted and no library loaded."""
+    fn_before, before = fa._FN, fa.fused_attention.launches
+    for shape in ((2, 3, 4, 8), (128, 2, 2, 512), (4, 16, 128, 64)):
+        q, k, v = map(torch.from_numpy, _qkv(*shape, seed=6))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            torch.testing.assert_close(fa.fused_attention(q, k, v),
+                                       fa.attention_plain(q, k, v),
+                                       rtol=0, atol=0)
+    assert fa.fused_attention.launches == before
+    assert fa._FN is fn_before
+
+
+_Q = torch.zeros(2, 4, 64)
+_ATTN_REFUSED = (
+    ("dtype", TypeError, (_Q.double(), _Q.double(), _Q.double())),
+    ("mixed dtype", TypeError, (_Q, _Q.bfloat16(), _Q)),
+    ("strided", ValueError, (_Q.transpose(1, 2), _Q, _Q)),
+    ("rank", ValueError, (_Q[0], _Q[0], _Q[0])),
+    ("k != v", ValueError, (_Q, _Q, _Q[:, :3])),
+    ("bh", ValueError, (_Q, _Q[:1], _Q[:1])),
+    ("long", ValueError, (torch.zeros(1, 129, 64),) * 3),
+    ("wide", ValueError, (torch.zeros(1, 4, 1024),) * 3))
+
+
+@pytest.mark.parametrize("exc,args", [c[1:] for c in _ATTN_REFUSED],
+                         ids=[c[0] for c in _ATTN_REFUSED])
+def test_attention_wrapper_checks_before_the_library(exc, args):
+    """The checks of the wrapper's kernel path run before the library is
+    bound, so they raise here too: what the kernel does not take never
+    reaches it, and nothing is counted."""
+    before = fa.fused_attention.launches
+    with pytest.raises(exc):
+        fa._launch(*args)
+    assert fa.fused_attention.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -276,13 +388,32 @@ def _relu_input(n, c, t, h, w, seed=0):
     return torch.from_numpy(x).permute(0, 4, 1, 2, 3)
 
 
-def _emulate_inception_kernel(x, fw, o, avg_tail, pool_in=None):
+def _sm90_tiling(ncols):
+    """igemm_sm90.cuh's ``tiling``: (nw, wide, column tiles). Up to 256
+    columns one tall tile of nw = round_up(ncols, 64); above, wide tiles
+    (two consumers of nw columns each) over ceil(ncols / 512) tiles."""
+    if ncols <= 256:
+        return -(-ncols // 64) * 64, False, 1
+    tiles = -(-ncols // 512)
+    return -(-(-(-ncols // (2 * tiles))) // 64) * 64, True, tiles
+
+
+def _emulate_inception_kernel(x, fw, o, avg_tail, pool_in=None,
+                              sm90=False):
     """csrc/inception.cu in float64 numpy: the problems its ``run`` sets up
     for the two launches, ``load_a``'s gathers (1x1 rows, 3x3x3 taps with
     bounds-checked zero fill, the zero-padded pool over rows +- H W, W, 1;
     with pool_in, ``load_pooled``'s window over the pre-pool rows, whose
     result the first launch also writes for b3 to read) and ``emit``'s
-    segments, f32 rounding, relu and (n, t) sums."""
+    segments, f32 rounding, relu and (n, t) sums.
+
+    With ``sm90`` the GEMMs run as igemm_sm90.cuh tiles them (its bf16
+    path): column tiles of ``_sm90_tiling``, zero columns past ncols (TMA's
+    fill); K tiles of 64 whose 8-wide chunks each decode their own tap
+    (k // cin: a tile crosses taps when cin is 16, 24 or 48) and are zero
+    past K (the ragged last tile); the f32 accumulator rounded after each
+    K tile. b3 is then a 1x1 GEMM over its pool, which that path computes
+    in a pass of its own (the same values as the gather here)."""
     n, c, t, h, w = x.shape
     if pool_in is not None:
         h, w = h // 2, w // 2
@@ -334,9 +465,41 @@ def _emulate_inception_kernel(x, fw, o, avg_tail, pool_in=None):
             pooled = np.maximum(pooled, np.where(ok, a[nb], 0.0))
         return pooled
 
+    def tiled(mode, a, cin, aoff, wmat):
+        wm = wmat.double().numpy().reshape(-1, wmat.shape[-1])
+        depth, ncols = wm.shape
+        nw, wide, col_tiles = _sm90_tiling(ncols)
+        width = 2 * nw if wide else nw
+        whole = None if mode == "conv" else load_a(mode, a, cin, aoff)
+        acc = np.zeros((rows, col_tiles * width), np.float32)
+        for n0 in range(0, col_tiles * width, width):
+            b = np.zeros((-(-depth // 64) * 64, width))
+            b[:depth, :max(0, min(width, ncols - n0))] = wm[:, n0:n0 + width]
+            for k0 in range(0, depth, 64):
+                a_tile = np.zeros((rows, 64))
+                for c in range(0, 64, 8):
+                    k = k0 + c
+                    if k >= depth:
+                        continue
+                    if whole is not None:
+                        a_tile[:, c:c + 8] = whole[:, k:k + 8]
+                        continue
+                    tap, ch = divmod(k, cin)
+                    ok, nb = neighbour(tap // 9 - 1, (tap // 3) % 3 - 1,
+                                       tap % 3 - 1)
+                    a_tile[:, c:c + 8] = np.where(
+                        ok, a[nb, aoff + ch:aoff + ch + 8], 0.0)
+                acc[:, n0:n0 + width] = (acc[:, n0:n0 + width]
+                                         + a_tile @ b[k0:k0 + 64]
+                                         ).astype(np.float32)
+        return acc[:, :ncols].astype(np.float64)
+
     def gemm(mode, a, cin, aoff, wmat, bias, segs):
-        acc = load_a(mode, a, cin, aoff) @ wmat.double().numpy().reshape(
-            -1, wmat.shape[-1])
+        if sm90:
+            acc = tiled(mode, a, cin, aoff, wmat)
+        else:
+            acc = load_a(mode, a, cin, aoff) @ wmat.double().numpy().reshape(
+                -1, wmat.shape[-1])
         v = acc + bias.double().numpy()
         for dst, use_sums, begin, end, off, round_first in segs:
             s = v[:, begin:end]
@@ -385,6 +548,42 @@ def test_inception_kernel_algorithm_matches_plain(shape, spec, avg_tail,
     want = inception.inception_plain(x, fw, spec, avg_tail=avg_tail,
                                      pool_in=pool_in).numpy()
     got = _emulate_inception_kernel(x, fw, spec, avg_tail, pool_in)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+
+
+_MIXED = {name: (c, spec) for name, c, _, spec in _mixed_shapes()}
+
+
+# at the real channel counts, tiny maps: (name, (N, T, H, W), pool_in,
+# the first launch's column tiles)
+_SM90_CASES = (
+    ("Mixed_4c", (1, 2, 3, 3), None, 1),   # b2b: K = 27 x 24 = 648
+    ("Mixed_5c", (1, 2, 3, 3), None, 2),   # N = 624, avg_tail
+    ("Mixed_4b", (1, 3, 6, 6), ((3, 3, 3), (1, 2, 2)), 1),  # o3 = 16
+    ("Mixed_3b", (2, 2, 4, 6), ((1, 3, 3), (1, 2, 2)), 1))  # N = 176
+
+
+@pytest.mark.parametrize("name,shape,pool_in,col_tiles", _SM90_CASES,
+                         ids=[c[0] for c in _SM90_CASES])
+def test_inception_sm90_tiling_matches_plain(name, shape, pool_in,
+                                             col_tiles):
+    """The bf16 launches' tiling (emulated: K tiles of 64 that cross taps,
+    a ragged last K tile, column tiles with zero columns past N) against
+    the plain version in f32: within 2e-5 of max |plain|. Mixed_5c's
+    first launch takes two column tiles, every other one a single one, so
+    pool_in's window is gathered once per row."""
+    c, spec = _MIXED[name]
+    n, t, h, w = shape
+    o0, o1, o2, o3, o4, o5 = spec
+    assert _sm90_tiling(o0 + o1 + o3)[2] == col_tiles
+    x = _relu_input(n, c, t, h, w, seed=11)
+    fw = _folded(c, spec, seed=12)
+    avg_tail = name == "Mixed_5c"
+    want = inception.inception_plain(x, fw, spec, avg_tail=avg_tail,
+                                     pool_in=pool_in).numpy()
+    got = _emulate_inception_kernel(x, fw, spec, avg_tail, pool_in,
+                                    sm90=True)
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
 
@@ -531,6 +730,39 @@ def test_inception_pool_in_matches_plain_on_card(name, c, hw, spec, pool_in,
     assert got.is_contiguous(memory_format=torch.channels_last_3d)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item()
+
+
+# (name, clips, T, module H = W, pool_in): row counts that are no multiple
+# of the 128- or 64-row tiles (11,760 at 28 x 28, 1,176 at 7 x 7)
+_RAGGED = (("Mixed_3b", 3, 5, 28, None), ("Mixed_5c", 3, 8, 7, None),
+           ("Mixed_3b", 3, 5, 28, ((1, 3, 3), (1, 2, 2))),
+           ("Mixed_5b", 3, 8, 7, ((2, 2, 2), (1, 2, 2))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,t,hw,pool_in", _RAGGED,
+                         ids=[f"{c[0]}-{c[3]}{'-pool' if c[4] else ''}"
+                              for c in _RAGGED])
+def test_inception_bf16_ragged_rows_on_card(name, n, t, hw, pool_in,
+                                            cuda_device):
+    """K3's bf16 launches (igemm_sm90.cuh) where the last row tile is
+    partly past the rows, with and without pool_in (x the pre-pool map):
+    within 1e-2 of max |plain|."""
+    c, spec = _MIXED[name]
+    pre = 2 * hw if pool_in else hw
+    x = _relu_input(n, c, t, pre, pre, seed=15).to(cuda_device,
+                                                   torch.bfloat16)
+    fw = inception.FoldedInception(*(a.to(cuda_device) for a in _folded(
+        c, spec, torch.bfloat16, seed=16)))
+    avg_tail = name == "Mixed_5c"
+    got = k3.inception_module_fused(x, fw, spec, avg_tail=avg_tail,
+                                    pool_in=pool_in)
+    torch.cuda.synchronize()
+    want = inception.inception_plain(x, fw, spec, avg_tail=avg_tail,
+                                     pool_in=pool_in)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item()
 
 
 # ---------------------------------------------------------------------------
