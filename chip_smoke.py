@@ -9,8 +9,10 @@ failure raises and the script exits non-zero:
 1. device and build: the card's name and power limit, nvcc build seconds
    of the four kernel sources, their ptxas lines and registers per kernel;
 2. kernels against their plain PyTorch versions on the card (TF32 off):
-   log-mel at N=128 (f32, atol 5e-5); attention at the serving path's four
-   shapes in f32 (atol 2e-5) and bf16 (atol 1e-2) plus head_dim 64,
+   log-mel at N=16 and 128 (f32, atol 5e-5; CUDA-events and device-only
+   times of K1 and of torch.stft + a mel GEMM, K1's device operations per
+   call, asserted to be one, and its registers); attention at the serving
+   path's four shapes in f32 (atol 2e-5) and bf16 (atol 1e-2) plus head_dim 64,
    Lq != Lk and L = 128 shapes, at the four served shapes in bf16 also the
    device-only time of K2 and of SDPA (torch.profiler's self device time
    per call) beside the CUDA-events time; the inception module (K3) at all nine
@@ -54,11 +56,19 @@ The last lines are the card's ``nvidia-smi`` name and power limit, the
 kernels summary JSON, and ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits non-zero
 before printing any result.
+
+    python3 chip_smoke.py --mel-ab TREE...   # K1 A/B, e.g. parent . . parent
+
+times K1 at N = 16 and 128 (CUDA events, device-only, its device
+operations) for the jmt_tpu_torch of each TREE in turn, each in a fresh
+process (``--mel-times`` run from that tree), on one card in one call: a
+parent tree unpacked with ``git archive`` into the ignored ``build/ab/``.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -172,11 +182,18 @@ def launch_ms(fn, reps: int = 3) -> list:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    # a process's first profiles may come back with no device event (three
+    # in a row seen): trace again, for up to about 6 s
+    for _ in range(30):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA]
+        if events:
+            break
+        time.sleep(0.2)
     per_call = len(events) // reps
 
     def short(name: str) -> str:
@@ -195,50 +212,90 @@ def device_ms(fn, reps: int = 20) -> float:
     return sum(ms for _, ms in launch_ms(fn, reps))
 
 
-def check_mel(gen: torch.Generator) -> dict:
+def mel_audio(gen: torch.Generator, n: int) -> torch.Tensor:
+    """n wavs of the served length on the card, the last an all-zero pad
+    row of a bucket (it must come out finite)."""
+    from jmt_tpu_torch.ops import mel
+    audio = (0.1 * torch.randn(n, mel.AUDIO_SAMPLES, generator=gen)).cuda()
+    audio[-1] = 0.0
+    return audio
+
+
+def mel_timing(audio: torch.Tensor) -> dict:
+    """K1's wrapper on audio: CUDA-events ms per call over 50 back-to-back
+    calls, device-only ms, and each device operation of one call (name,
+    ms; torch.profiler). Uses only ``log_mel_spec``, so it times any
+    tree's K1 (``--mel-ab``)."""
+    from jmt_tpu_torch.ops.kernels import melspec
+    ops = launch_ms(lambda: melspec.log_mel_spec(audio), reps=20)
+    return {"ms": time_ms(lambda: melspec.log_mel_spec(audio)),
+            "device_ms": sum(ms for _, ms in ops), "device_ops": ops}
+
+
+def check_mel(gen: torch.Generator, registers: dict) -> dict:
+    """K1 against its plain version at N = 16 (bucket 1 x seq 16) and 128
+    (bucket 8), atol 5e-5, then timed beside the plain version and the
+    library (``torch.stft`` + a mel GEMM) at both; the record's top-level
+    times are N = 128's."""
     from jmt_tpu_torch.ops import mel
     from jmt_tpu_torch.ops.kernels import melspec
-    n = 128
-    audio = (0.1 * torch.randn(n, mel.AUDIO_SAMPLES, generator=gen)).cuda()
-    audio[-1] = 0.0  # a pad row of a bucket: must come out finite
-    got = melspec.log_mel_spec(audio)
-    want = mel.log_mel_batch(audio)
-    err = (got - want).abs().max().item()
-    finite = bool(torch.isfinite(got).all())
-    if not finite or err > 5e-5:
-        raise AssertionError(f"log-mel kernel: max abs err {err} (tol 5e-5),"
-                             f" finite={finite}")
-
     window = torch.hann_window(mel.WIN_LENGTH, periodic=True, device="cuda")
     fb_t = torch.tensor(np.array(mel.mel_filterbank()), device="cuda").T
+    by_n = {}
+    for n in (16, 128):
+        audio = mel_audio(gen, n)
+        got = melspec.log_mel_spec(audio)
+        want = mel.log_mel_batch(audio)
+        err = (got - want).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        if not finite or err > 5e-5:
+            raise AssertionError(f"log-mel kernel N={n}: max abs err {err} "
+                                 f"(tol 5e-5), finite={finite}")
 
-    def library():
-        spec = torch.stft(audio, n_fft=mel.N_FFT, hop_length=mel.HOP_LENGTH,
-                          win_length=mel.WIN_LENGTH, window=window,
-                          center=True, pad_mode="reflect",
-                          return_complex=True)
-        db = 10.0 * torch.log10(torch.clamp(
-            torch.matmul(fb_t, spec.abs() ** 2), min=mel.AMIN))
-        db = torch.maximum(db, db.amax(dim=(1, 2), keepdim=True) - 80.0)
-        return (db - mel.SPEC_MEAN) / mel.SPEC_STD
+        def library():
+            spec = torch.stft(audio, n_fft=mel.N_FFT,
+                              hop_length=mel.HOP_LENGTH,
+                              win_length=mel.WIN_LENGTH, window=window,
+                              center=True, pad_mode="reflect",
+                              return_complex=True)
+            db = 10.0 * torch.log10(torch.clamp(
+                torch.matmul(fb_t, spec.abs() ** 2), min=mel.AMIN))
+            db = torch.maximum(db, db.amax(dim=(1, 2), keepdim=True) - 80.0)
+            return (db - mel.SPEC_MEAN) / mel.SPEC_STD
 
-    lib_err = (library() - want).abs().max().item()
-    n_frames = got.shape[-1]
-    fft_flops = 5 * mel.N_FFT * np.log2(mel.N_FFT) * ((n_frames + 1) // 2)
-    mel_flops = 2 * melspec.filterbank_nnz() * n_frames
-    b_ms, b_by = bound(n * (mel.AUDIO_SAMPLES + mel.N_MELS * n_frames) * 4,
-                       n * (fft_flops + mel_flops), F32_PEAK_FLOPS)
-    rec = {"name": "log_mel", "route": "cuda",
-           "source": "jmt_tpu_torch/csrc/melspec.cu",
-           "replaces": "jmt_tpu/ops/pallas/melspec.py:75",
-           "shape": [n, mel.AUDIO_SAMPLES], "dtype": "float32",
-           "max_abs_err": err, "library_max_abs_err": lib_err,
-           "ms": time_ms(lambda: melspec.log_mel_spec(audio)),
-           "plain_ms": time_ms(lambda: mel.log_mel_batch(audio)),
-           "library_ms": time_ms(library),
-           "bound_ms": b_ms, "bound_by": b_by}
-    emit({"phase": "kernel", **rec})
-    return rec
+        n_frames = got.shape[-1]
+        fft_flops = 5 * mel.N_FFT * np.log2(mel.N_FFT) * ((n_frames + 1) // 2)
+        mel_flops = 2 * melspec.filterbank_nnz() * n_frames
+        b_ms, b_by = bound(
+            n * (mel.AUDIO_SAMPLES + mel.N_MELS * n_frames) * 4,
+            n * (fft_flops + mel_flops), F32_PEAK_FLOPS)
+        rec = {"shape": [n, mel.AUDIO_SAMPLES], "max_abs_err": err,
+               "library_max_abs_err": (library() - want).abs().max().item(),
+               **mel_timing(audio),
+               "plain_ms": time_ms(lambda: mel.log_mel_batch(audio)),
+               "library_ms": time_ms(library),
+               "library_device_ms": device_ms(library),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if len(rec["device_ops"]) != 1:
+            raise AssertionError(f"log-mel kernel N={n}: one device "
+                                 f"operation a call expected, got "
+                                 f"{rec['device_ops']}")
+        emit({"phase": "kernel", "kernel": "log_mel", **rec})
+        by_n[n] = rec
+    return {"name": "log_mel", "route": "cuda",
+            "source": "jmt_tpu_torch/csrc/melspec.cu",
+            "replaces": "jmt_tpu/ops/pallas/melspec.py:75",
+            "dtype": "float32",
+            "timing": "N = 128 wavs (bucket 8); ms and library_ms by CUDA "
+                      "events over 50 back-to-back calls, device_ms and "
+                      "library_device_ms the device time of every kernel "
+                      "of one call (torch.profiler); n16: the same at N = 16",
+            **{k: v for k, v in by_n[128].items() if k != "shape"},
+            "max_abs_err": max(r["max_abs_err"] for r in by_n.values()),
+            "registers": registers.get("melspec"),
+            "n16": {k: by_n[16][k] for k in (
+                "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by")}}
 
 
 def attn_inputs(gen, bh, lq, lk, d, dtype):
@@ -804,10 +861,43 @@ def full_fp32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
+def mel_times() -> None:
+    """``--mel-times``: K1 of the jmt_tpu_torch in the working directory
+    (built from that tree's sources) at N = 16 and 128, one line each."""
+    sys.path.insert(0, os.getcwd())
+    import jmt_tpu_torch
+    gen = torch.Generator().manual_seed(0)
+    for n in (16, 128):
+        emit({"n": n, "package": os.path.dirname(jmt_tpu_torch.__file__),
+              **mel_timing(mel_audio(gen, n))})
+
+
+def mel_ab(trees) -> None:
+    """``--mel-ab TREE...``: a same-call A/B of K1, each tree's own
+    jmt_tpu_torch in turn (parent, change, change, parent), each in a fresh
+    process running ``--mel-times`` from that tree."""
+    for tree in trees:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--mel-times"], cwd=tree, capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"--mel-times in {tree} failed:\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                emit({"phase": "mel_ab", "tree": tree, **json.loads(line)})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mel-times"]:
+        mel_times()
+        return 0
+    if sys.argv[1:2] == ["--mel-ab"]:
+        mel_ab(sys.argv[2:])
+        return 0
     import jmt_tpu_torch  # noqa: F401  (fails outside the repository)
 
     smi = nvidia_smi()
@@ -819,7 +909,7 @@ def main() -> int:
         registers = phase_build()
     gen = torch.Generator().manual_seed(0)
     with phase("kernels"), full_fp32():
-        kernels = [check_mel(gen), check_attention(gen),
+        kernels = [check_mel(gen, registers), check_attention(gen),
                    {"name": "inception_module_fused", "route": "cuda",
                     "source": "jmt_tpu_torch/csrc/inception.cu",
                     "replaces": "jmt_tpu/ops/inception_pallas.py:482",

@@ -54,15 +54,21 @@ def _qkv(bh, lq, lk, d, seed=0):
 # ---------------------------------------------------------------------------
 def test_log_mel_dispatch_cpu_uses_plain_and_does_not_count():
     """``log_mel`` flattens (2, 3, L) to (6, L) and hands that to the plain
-    version: bitwise equal to ``log_mel_batch`` on the same (6, L) input.
-    Against the (2, 3, L) call the batched GEMM may sum in another order
-    (gaps up to 3.9e-6 seen), so that comparison is held at atol 1e-5."""
+    version: no launch is counted, and the values are those of
+    ``log_mel_batch`` on the (6, L) input and on the (2, 3, L) input.
+
+    Both comparisons hold at atol 1e-5, not bitwise. Each side is a CPU FFT
+    and GEMM in f32, and two such runs need not round alike: in a run of
+    the whole suite with 6 workers a gap of 3.9e-6 was seen, where a
+    single process is bit-identical every time. This input's f32 values lie
+    within 8.3e-7 of an f64 evaluation. 1e-5 is 2.5x the largest gap seen
+    and 5x below the log-mel tolerance (5e-5)."""
     x = torch.from_numpy(_audio((2, 3, 45599), seed=2))
     before = melspec.log_mel_spec.launches
     got = mel.log_mel(x, batch_dims=2)
     assert melspec.log_mel_spec.launches == before
     flat = mel.log_mel_batch(x.reshape(6, -1)).reshape(got.shape)
-    torch.testing.assert_close(got, flat, rtol=0, atol=0)
+    torch.testing.assert_close(got, flat, rtol=0, atol=1e-5)
     torch.testing.assert_close(got, mel.log_mel_batch(x, batch_dims=2),
                                rtol=0, atol=1e-5)
     with pytest.raises(ValueError):
@@ -70,71 +76,199 @@ def test_log_mel_dispatch_cpu_uses_plain_and_does_not_count():
 
 
 def test_kernel_constants_reproduce_dense_filterbank_and_twiddles():
-    window, twiddle, fb_w, meta = melspec._host_constants()
+    """The slot-major table rebuilds the dense filterbank (996 nonzeros),
+    with zeros past each band's count; every band sits in one slot; each
+    slot's block is as long as its widest band, 89 steps in all against
+    64 (996 / 16 = 62.25) for an ideal split, with no divergence; the
+    twiddles are W1024^(k2 n1) at 32 k2 + n1."""
+    window, twiddle, table, meta = melspec._host_constants()
     fb = np.asarray(mel.mel_filterbank())
+    bands, first, cnt, tail = meta
+    lens, offs = tail[:4], tail[4:8]
+    assert sorted(bands) == list(range(mel.N_MELS))
+    assert list(lens) == [int(cnt[16 * j:16 * j + 16].max()) for j in range(4)]
+    assert table.size == 16 * lens.sum() == 16 * 89 <= 1536
     dense = np.zeros_like(fb)
-    for m in range(mel.N_MELS):
-        lo, cnt, off = meta[:, m]
-        dense[lo:lo + cnt, m] = fb_w[off:off + cnt]
+    for slot, m in enumerate(bands):
+        j, g = divmod(slot, 16)
+        col = table[offs[j] + g:offs[j] + 16 * lens[j]:16]
+        dense[first[slot]:first[slot] + cnt[slot], m] = col[:cnt[slot]]
+        assert not col[cnt[slot]:].any()
     np.testing.assert_array_equal(dense, fb)
-    assert fb_w.size == melspec.filterbank_nnz() <= 4096
-    k = np.arange(mel.N_FFT // 2)
-    ref = np.exp(-2j * np.pi * k / mel.N_FFT)
+    assert melspec.filterbank_nnz() == 996 == np.count_nonzero(fb)
+    k2, n1 = np.divmod(np.arange(1024), 32)
+    ref = np.exp(-2j * np.pi * k2 * n1 / mel.N_FFT)
     np.testing.assert_allclose(twiddle[:, 0] + 1j * twiddle[:, 1], ref,
                                atol=1e-7)
     np.testing.assert_array_equal(window, mel._padded_hann())
 
 
-def _emulate_kernel(audio: np.ndarray) -> np.ndarray:
-    """The arithmetic of csrc/melspec.cu in numpy float32: in-kernel
-    reflect framing, two frames per complex radix-2 FFT (bit-reversed
-    load, DIT butterflies), spectrum split, sparse mel sum, per-wav floor."""
-    window, twiddle, fb_w, meta = melspec._host_constants()
-    tw = (twiddle[:, 0] + 1j * twiddle[:, 1]).astype(np.complex64)
+_W32 = np.exp(-2j * np.pi * np.arange(16) / 32).astype(np.complex64)
+_BREV5 = np.array([int(f"{i:05b}"[::-1], 2) for i in range(32)])
+
+
+def _dif32(z: np.ndarray) -> np.ndarray:
+    """The kernel's in-register 32-point radix-2 DIF over the last axis,
+    complex64 with the twiddles 1 and -i exact; returns natural order."""
+    z = z.copy()
+    s = 32
+    while s >= 2:
+        h = s // 2
+        for b in range(0, 32, s):
+            for j in range(h):
+                a, c = z[..., b + j].copy(), z[..., b + j + h].copy()
+                z[..., b + j] = a + c
+                w = j * (32 // s)
+                d = a - c
+                z[..., b + j + h] = (d if w == 0 else np.complex64(-1j) * d
+                                     if w == 8 else d * _W32[w])
+        s = h
+    return z[..., np.argsort(_BREV5)]
+
+
+def _fft_radix32(frames: np.ndarray, tw: np.ndarray) -> np.ndarray:
+    """(P, 1024) complex64 -> (P, 1024): the kernel's four-step FFT. Lane
+    n1 holds x[n1 + 32 n2]; DIF over n2; times W1024^(n1 k2) (none at
+    k2 = 0); the slab transpose; DIF over n1; Z[k2 + 32 k1]."""
+    y = _dif32(frames.reshape(-1, 32, 32).transpose(0, 2, 1))  # [p, n1, k2]
+    y[..., 1:] *= tw.reshape(32, 32).T[None, :, 1:]             # [n1, k2]
+    z = _dif32(y.transpose(0, 2, 1))                           # [p, k2, k1]
+    return z.transpose(0, 2, 1).reshape(-1, 1024)
+
+
+def _stage_window(row, base, t0, nf, fpc):
+    """A CTA's staged window, as the kernel copies it: the padded samples
+    [lo, hi) at win[phase + p - lo], phase = (element offset of sample lo)
+    mod 4. The row's samples come in 16-byte chunks that land on 16-byte
+    boundaries, with single samples at the ragged ends; the reflected
+    samples (p < 0 -> -p, p >= L -> 2(L-1) - p) are single loads. Unwritten
+    slots are NaN."""
+    length = row.size
+    lo, hi = t0 * 441 - 512, (t0 + nf - 1) * 441 + 512
+    phase = (base + lo) % 4
+    win = np.full(-(-((fpc - 1) * 441 + 1027) // 4) * 4, np.nan, np.float32)
+    w0 = win[phase:]                       # w0[p - lo] holds sample p
+    a0, a1 = max(lo, 0), min(hi, length)
+    head = min((4 - (base + a0) % 4) % 4, a1 - a0)
+    n_vec = (a1 - a0 - head) // 4
+    tail = a0 + head + 4 * n_vec
+    assert (base + a0 + head) % 4 == 0 and (phase + a0 + head - lo) % 4 == 0
+    w0[a0 - lo:a0 + head - lo] = row[a0:a0 + head]
+    w0[a0 + head - lo:tail - lo] = row[a0 + head:tail]
+    w0[tail - lo:a1 - lo] = row[tail:a1]
+    for p in range(lo, 0):
+        w0[p - lo] = row[-p]
+    for p in range(length, hi):
+        w0[p - lo] = row[2 * (length - 1) - p]
+    return win, phase, lo
+
+
+def _emulate_kernel(audio: np.ndarray, base: int = 0) -> np.ndarray:
+    """The arithmetic of csrc/melspec.cu in numpy float32, step for step:
+    each wav split over the cluster's CTAs (F = ceil(T / 8) frames each);
+    each CTA's staged, padded window (``base``: the element offset of the
+    tensor's first sample, which sets the 16-byte phase; reflected samples
+    only in a window that crosses an end); two frames per radix-32 x 32
+    FFT; the spectrum split; the slot-major mel sum (each band summed in
+    bin order, the zero weights past its count adding nothing); dB; each
+    CTA's max, then the cluster's max; the floor and normalization."""
+    window, tw, table, meta = melspec._host_constants()
+    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
     n_wav, length = audio.shape
     n_frames = 1 + length // mel.HOP_LENGTH
-    brev = np.array([int(f"{i:010b}"[::-1], 2) for i in range(1024)])
-    idx = np.arange(n_frames)[:, None] * mel.HOP_LENGTH + np.arange(1024) - 512
-    idx = np.where(idx < 0, -idx, idx)
-    idx = np.where(idx >= length, 2 * (length - 1) - idx, idx)
-    frames = audio[:, idx] * window                     # (N, T, 1024)
-    if n_frames % 2:
-        frames = np.concatenate([frames, np.zeros_like(frames[:, :1])], 1)
-    z = np.zeros(frames.shape[:1] + (frames.shape[1] // 2, 1024),
-                 np.complex64)
-    z[..., brev] = frames[:, 0::2] + 1j * frames[:, 1::2]
-    half, tstep = 1, 512
-    j = np.arange(512)
-    while half < 1024:
-        pos = j & (half - 1)
-        i0 = ((j - pos) << 1) + pos
-        t = tw[pos * tstep] * z[..., i0 + half]
-        a = z[..., i0].copy()
-        z[..., i0], z[..., i0 + half] = a + t, a - t
-        half, tstep = half << 1, tstep >> 1
+    fpc = -(-n_frames // melspec.CLUSTER)
+    out = np.full((n_wav, 64, n_frames), np.nan, np.float32)
     k = np.arange(513)
-    zk, zn = z[..., k], z[..., (1024 - k) & 1023]
-    spec_a = np.float32(0.5) * (zk + np.conj(zn))
-    spec_b = np.complex64(-0.5j) * (zk - np.conj(zn))
-    power = np.stack([np.abs(spec_a) ** 2, np.abs(spec_b) ** 2], 2)
-    power = power.reshape(n_wav, -1, 513)[:, :n_frames]  # (N, T, 513)
-    out = np.zeros((n_wav, 64, n_frames), np.float32)
-    for m in range(64):
-        lo, cnt, off = meta[:, m]
-        out[:, m] = power[..., lo:lo + cnt] @ fb_w[off:off + cnt]
-    db = np.float32(10.0) * np.log10(np.maximum(out, np.float32(1e-10)))
-    db = np.maximum(db, db.max(axis=(1, 2), keepdims=True) - np.float32(80))
-    return (db - np.float32(-14.8)) / np.float32(19.895)
+    for w in range(n_wav):
+        row = audio[w]
+        tiles, maxes = [], []
+        for rank in range(melspec.CLUSTER):
+            t0 = rank * fpc
+            nf = max(0, min(n_frames - t0, fpc))
+            tile = np.full((64, nf), np.nan, np.float32)
+            if nf:
+                win, phase, lo = _stage_window(row, base + w * length, t0,
+                                               nf, fpc)
+                idx = (t0 + np.arange(nf))[:, None] * 441 - 512 + np.arange(
+                    1024)
+                frames = win[phase + idx - lo] * window         # (nf, 1024)
+                assert not np.isnan(frames).any()  # only staged samples
+                if nf % 2:
+                    frames = np.concatenate([frames, np.zeros_like(
+                        frames[:1])])
+                z = _fft_radix32((frames[0::2] + 1j * frames[1::2]).astype(
+                    np.complex64), tw)
+                zk, zn = z[:, k], z[:, (1024 - k) & 1023]
+                h = np.float32(0.5)
+                power = np.stack([
+                    (h * (zk.real + zn.real)) ** 2
+                    + (h * (zk.imag - zn.imag)) ** 2,
+                    (h * (zk.imag + zn.imag)) ** 2
+                    + (-h * (zk.real - zn.real)) ** 2], 1)
+                power = power.reshape(-1, 513)[:nf]              # (nf, 513)
+                for slot in range(64):  # lane slot % 16, step slot // 16
+                    m, first, cnt = meta[:3, slot]
+                    j, g = divmod(slot, 16)
+                    w_col = table[meta[3, 4 + j] + g::16][:cnt]
+                    acc = np.zeros(nf, np.float32)
+                    for i in range(cnt):
+                        acc = acc + w_col[i] * power[:, first + i]
+                    tile[m] = np.float32(10.0) * np.log10(
+                        np.maximum(acc, np.float32(1e-10)))
+            tiles.append(tile)
+            maxes.append(tile.max() if nf else -np.inf)
+        floor = np.float32(max(maxes)) - np.float32(80)
+        for rank, tile in enumerate(tiles):
+            t0 = rank * fpc
+            out[w, :, t0:t0 + tile.shape[1]] = (
+                np.maximum(tile, floor) - np.float32(-14.8)) / np.float32(
+                    19.895)
+    assert not np.isnan(out).any()
+    return out
 
 
-@pytest.mark.parametrize("length", [45599, 45599 - 441])
-def test_kernel_algorithm_matches_plain(length):
+# (length, element offset of the first sample): the served length, and
+# T = 103 (odd, 103 % 8 != 0), T = 105 (odd), T = 46 (not a multiple of 8),
+# T = 4 (CTAs 4-7 own no frame), T = 2 (CTA 1's window reflects at both
+# ends); offsets 1-3 put the 16-byte chunks' phase elsewhere, offset 3 as
+# x[1:] of (N, 45599) rows
+_MEL_LENGTHS = ((45599, 0), (45599 - 441, 0), (45599 + 441, 1),
+                (20000, 2), (1500, 3), (600, 0), (45599, 3))
+
+
+@pytest.mark.parametrize("length,base", _MEL_LENGTHS)
+def test_kernel_algorithm_matches_plain(length, base):
     """The CUDA kernel's algorithm (emulated) agrees with the plain version
-    at atol 5e-5; an odd frame count exercises the unpaired last frame."""
+    at atol 5e-5, an all-zero row included."""
     x = _audio((2, length), seed=3, zero_rows=((1,),))
-    got = _emulate_kernel(x)
+    got = _emulate_kernel(x, base)
     want = mel.log_mel_batch(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
+
+
+_MEL_REFUSED = (
+    ("dtype", TypeError, torch.zeros(2, 45599, dtype=torch.float64)),
+    ("rank", ValueError, torch.zeros(2, 3, 45599)),
+    ("strided", ValueError, torch.zeros(2, 2 * 45599)[:, ::2]),
+    ("no wav", ValueError, torch.zeros(0, 45599)),
+    ("short", ValueError, torch.zeros(2, 512)),
+    ("too many frames for the cluster", ValueError,
+     torch.zeros(1, 8 * 40 * 441)))
+
+
+@pytest.mark.parametrize("exc,audio", [c[1:] for c in _MEL_REFUSED],
+                         ids=[c[0] for c in _MEL_REFUSED])
+def test_log_mel_wrapper_checks_before_the_library(exc, audio):
+    """The wrapper's checks run before the library is bound, so they raise
+    on CPU tensors too; nothing is counted. The longest length it takes,
+    T = 320 frames (40 a CTA), passes."""
+    fn_before, before = melspec._FN, melspec.log_mel_spec.launches
+    with pytest.raises(exc):
+        melspec._launch(audio)
+    assert melspec._check(torch.zeros(1, 8 * 40 * 441 - 1)) == 320
+    assert melspec._check(torch.empty(65535, 513, device="meta")) == 2
+    assert (melspec._FN, melspec.log_mel_spec.launches) == (fn_before,
+                                                            before)
 
 
 @pytest.mark.cuda
@@ -152,6 +286,41 @@ def test_mel_kernel_matches_plain_on_card(cuda_device):
         melspec.log_mel_spec(x.double())
     with pytest.raises(ValueError):
         melspec.log_mel_spec(x[:, ::2])
+    with pytest.raises(ValueError):  # 321 frames: 41 a CTA
+        melspec.log_mel_spec(x[:1, :1].expand(1, 8 * 40 * 441).contiguous())
+
+
+# (name, N, L, all-zero rows, rows dropped at the front): the buckets'
+# N = 1, 16 and 128 at the served length; odd T = 103 (103 % 8 != 0);
+# L = 600 (T = 2: CTA 1's window reflects at both ends, CTAs 2-7 own no
+# frame); T = 320, the most the cluster takes; x[1:] of (129, 45599), whose
+# base is 12 mod 16 bytes
+_MEL_CARD_CASES = (("n1", 1, 45599, (), 0), ("n16", 16, 45599, ((15,),), 0),
+                   ("n128", 128, 45599, ((0,), (127,)), 0),
+                   ("odd_t", 5, 45599 - 441, ((4,),), 0),
+                   ("short", 3, 600, (), 0),
+                   ("t320", 2, 8 * 40 * 441 - 1, (), 0),
+                   ("all_zero", 2, 45599, ((0,), (1,)), 0),
+                   ("misaligned", 128, 45599, ((5,),), 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,length,zero_rows,drop",
+                         [c[1:] for c in _MEL_CARD_CASES],
+                         ids=[c[0] for c in _MEL_CARD_CASES])
+def test_mel_kernel_cases_on_card(n, length, zero_rows, drop, cuda_device):
+    """Each case within atol 5e-5 of the plain version, finite, in one
+    launch."""
+    x = torch.from_numpy(_audio((n + drop, length), seed=9,
+                                zero_rows=zero_rows)).to(cuda_device)[drop:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 12 * drop
+    before = melspec.log_mel_spec.launches
+    got = melspec.log_mel_spec(x)
+    torch.cuda.synchronize()
+    assert melspec.log_mel_spec.launches == before + 1
+    assert got.shape == (n, 64, 1 + length // 441)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, mel.log_mel_batch(x), rtol=0, atol=5e-5)
 
 
 # ---------------------------------------------------------------------------
