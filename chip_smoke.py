@@ -45,7 +45,9 @@ failure raises and the script exits non-zero:
 7. K4 (path B, ``jmt_tpu_torch.tools.pool1x1_experiment``): against its
    plain version at the TPU tool's check shapes (f32 within 1e-5, bf16
    within 1e-2 of max |plain|), timed at its six shapes (bf16, 128 clips)
-   beside its plain version and max_pool_same + a 1x1 cuDNN conv; the
+   beside its plain version and max_pool_same + a 1x1 cuDNN conv, with
+   its device-only time, its bound and share of it, and its device
+   operations per call, asserted to be one; the
    Mixed_4b..4f chain with 4 K4 launches a forward (asserted) and with
    cuDNN alone;
 8. card against CPU: the flagship, flag on, one seq-4 request, card f32
@@ -58,11 +60,14 @@ device, or without the repository beside it, the script exits non-zero
 before printing any result.
 
     python3 chip_smoke.py --mel-ab TREE...   # K1 A/B, e.g. parent . . parent
+    python3 chip_smoke.py --k4-ab TREE...    # K4 A/B, the same way
 
-times K1 at N = 16 and 128 (CUDA events, device-only, its device
-operations) for the jmt_tpu_torch of each TREE in turn, each in a fresh
-process (``--mel-times`` run from that tree), on one card in one call: a
-parent tree unpacked with ``git archive`` into the ignored ``build/ab/``.
+time K1 at N = 16 and 128, or K4 at its six timed shapes (128 clips,
+bf16), each with CUDA events, device-only time and its device operations,
+for the jmt_tpu_torch of each TREE in turn, each in a fresh process
+(``--mel-times`` / ``--k4-times`` run from that tree), on one card in one
+call: a parent tree unpacked with ``git archive`` into the ignored
+``build/ab/``.
 """
 from __future__ import annotations
 
@@ -183,7 +188,8 @@ def launch_ms(fn, reps: int = 3) -> list:
     fn()
     torch.cuda.synchronize()
     # a process's first profiles may come back with no device event (three
-    # in a row seen): trace again, for up to about 6 s
+    # in a row seen), or with fewer than reps calls' events: trace again,
+    # for up to about 6 s
     for _ in range(30):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -191,9 +197,12 @@ def launch_ms(fn, reps: int = 3) -> list:
             torch.cuda.synchronize()
         events = [ev for ev in prof.events()
                   if ev.device_type == DeviceType.CUDA]
-        if events:
+        if events and len(events) % reps == 0:
             break
         time.sleep(0.2)
+    else:
+        raise RuntimeError(f"torch.profiler traced {len(events)} device "
+                           f"operations over {reps} calls")
     per_call = len(events) // reps
 
     def short(name: str) -> str:
@@ -707,15 +716,30 @@ def phase_slice(rng) -> None:
               **request_latency(server, reqs[b], iters=8)})
 
 
-def phase_pool1x1() -> dict:
+def phase_pool1x1(registers: dict) -> dict:
     """Path B: K4 through its experiment entry point
-    (``jmt_tpu_torch.tools.pool1x1_experiment``); returns K4's record."""
+    (``jmt_tpu_torch.tools.pool1x1_experiment``); returns K4's record. At
+    each of the six timed shapes also K4's device-only time and its device
+    operations per call, asserted to be one: from ``--k4-times`` in a fresh
+    process, because late in this one torch.profiler dropped some of K4's
+    device operations from every trace."""
     from jmt_tpu_torch.tools import pool1x1_experiment as pe
     gen = torch.Generator(device="cuda").manual_seed(2)
     checks = pe.check(gen)
     timed = [pe.time_case(shape, co, gen)
              for mode in ("time", "time2")
              for shape, co in pe.TIME_SHAPES[mode]]
+    fresh = {(tuple(r["shape"]), r["co"]): r
+             for r in tree_times(os.path.dirname(os.path.abspath(__file__)),
+                                 "k4")}
+    for rec in timed:
+        ab = fresh[(tuple(rec["shape"]), rec["co"])]
+        rec.update(device_ms=ab["device_ms"], device_ops=ab["device_ops"],
+                   bound_share=rec["bound_ms"] / ab["device_ms"])
+        if len(rec["device_ops"]) != 1:
+            raise AssertionError(f"pool3_1x1 kernel {rec['shape']}: one "
+                                 f"device operation a call expected, got "
+                                 f"{rec['device_ops']}")
     for rec in checks + timed:
         emit({"phase": "kernel", "kernel": "pool3_1x1", **rec})
     x = torch.randn(*pe.CHAIN_INPUT, device="cuda", generator=gen)
@@ -743,18 +767,26 @@ def phase_pool1x1() -> dict:
                 if r["shape"] == [128, 8, 14, 14, 512] and r["co"] == 64)
     f32 = [r for r in checks if r["dtype"] == "float32"]
     bf16 = [r for r in checks + timed if r["dtype"] == "bfloat16"]
+    keys = ("ms", "device_ms", "bound_ms", "bound_by", "bound_share",
+            "plain_ms", "library_ms")
     return {"name": "pool3_1x1", "route": "cuda",
             "source": "jmt_tpu_torch/csrc/pool1x1.cu",
             "replaces": "tools/pallas_pool1x1_experiment.py:76",
             "dtype": "bfloat16",
-            "timing": "(128, 8, 14, 14, 512) -> 64 bf16; launches: one "
-                      "forward of the Mixed_4b..4f chain",
+            "timing": "(128, 8, 14, 14, 512) -> 64 bf16; ms, plain_ms and "
+                      "library_ms by CUDA events, device_ms the kernel's "
+                      "device time (torch.profiler, --k4-times in a fresh "
+                      "process), bound_share bound_ms / device_ms; shapes: "
+                      "the six timed shapes; launches: one forward of the "
+                      "Mixed_4b..4f chain",
             "max_abs_err": max(r["max_abs_err"] for r in f32),
             "rel_err_f32": max(r["rel_err"] for r in f32),
             "max_abs_err_bf16": max(r["max_abs_err"] for r in bf16),
             "rel_err_bf16": max(r["rel_err"] for r in bf16),
-            **{k: main[k] for k in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by")},
+            **{k: main[k] for k in keys},
+            "shapes": [{"shape": r["shape"], "co": r["co"],
+                        **{k: r[k] for k in keys}} for r in timed],
+            "registers": registers.get("pool1x1"),
             "chain_ms": chains[True]["chain_ms"],
             "chain_cudnn_ms": chains[False]["chain_ms"],
             "launches": launches["pool3_1x1"]}
@@ -861,6 +893,25 @@ def full_fp32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
+def k4_timing(x: torch.Tensor, k: torch.Tensor) -> dict:
+    """K4's wrapper on (x, k): CUDA-events ms per call over 20 back-to-back
+    calls, device-only ms, and each device operation of one call (name,
+    ms; torch.profiler). Uses only ``pool3_1x1``, so it times any tree's
+    K4 (``--k4-ab``)."""
+    from jmt_tpu_torch.ops.kernels.pool1x1 import pool3_1x1
+    ops = launch_ms(lambda: pool3_1x1(x, k), reps=10)
+    return {"ms": time_ms(lambda: pool3_1x1(x, k), iters=20, warmup=3),
+            "device_ms": sum(ms for _, ms in ops), "device_ops": ops}
+
+
+def k4_inputs(shape, co: int, gen: torch.Generator):
+    """x ~ N(0, 1) (N, T, H, W, C) as (N, C, T, H, W) channels-last and
+    k ~ N(0, 0.05^2) (C, co), bf16 on the card."""
+    x = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    k = 0.05 * torch.randn(shape[-1], co, device="cuda", generator=gen)
+    return x.permute(0, 4, 1, 2, 3), k.to(torch.bfloat16)
+
+
 def mel_times() -> None:
     """``--mel-times``: K1 of the jmt_tpu_torch in the working directory
     (built from that tree's sources) at N = 16 and 128, one line each."""
@@ -872,20 +923,39 @@ def mel_times() -> None:
               **mel_timing(mel_audio(gen, n))})
 
 
-def mel_ab(trees) -> None:
-    """``--mel-ab TREE...``: a same-call A/B of K1, each tree's own
-    jmt_tpu_torch in turn (parent, change, change, parent), each in a fresh
-    process running ``--mel-times`` from that tree."""
+def k4_times() -> None:
+    """``--k4-times``: K4 of the jmt_tpu_torch in the working directory at
+    the TPU tool's six timed shapes (128 clips, bf16), one line each."""
+    sys.path.insert(0, os.getcwd())
+    import jmt_tpu_torch
+    from jmt_tpu_torch.tools.pool1x1_experiment import TIME_SHAPES
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape, co in TIME_SHAPES["time"] + TIME_SHAPES["time2"]:
+        emit({"shape": list(shape), "co": co,
+              "package": os.path.dirname(jmt_tpu_torch.__file__),
+              **k4_timing(*k4_inputs(shape, co, gen))})
+
+
+def tree_times(tree: str, mode: str) -> list:
+    """The records of ``--mel-times`` / ``--k4-times`` run in a fresh
+    process from ``tree``, on that tree's jmt_tpu_torch."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           f"--{mode}-times"], cwd=tree, capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"--{mode}-times in {tree} failed:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+
+
+def tree_ab(trees, mode: str) -> None:
+    """``--mel-ab`` / ``--k4-ab TREE...``: a same-call A/B of K1 or K4, each
+    tree's own jmt_tpu_torch in turn (parent, change, change, parent), each
+    in a fresh process (``tree_times``)."""
     for tree in trees:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--mel-times"], cwd=tree, capture_output=True,
-                              text=True, timeout=900)
-        if proc.returncode:
-            raise RuntimeError(f"--mel-times in {tree} failed:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        for line in proc.stdout.splitlines():
-            if line.startswith("{"):
-                emit({"phase": "mel_ab", "tree": tree, **json.loads(line)})
+        for rec in tree_times(tree, mode):
+            emit({"phase": f"{mode}_ab", "tree": tree, **rec})
 
 
 def main() -> int:
@@ -895,8 +965,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--mel-times"]:
         mel_times()
         return 0
-    if sys.argv[1:2] == ["--mel-ab"]:
-        mel_ab(sys.argv[2:])
+    if sys.argv[1:2] == ["--k4-times"]:
+        k4_times()
+        return 0
+    if sys.argv[1:2] in (["--mel-ab"], ["--k4-ab"]):
+        tree_ab(sys.argv[2:], sys.argv[1][2:-3])
         return 0
     import jmt_tpu_torch  # noqa: F401  (fails outside the repository)
 
@@ -928,7 +1001,7 @@ def main() -> int:
         phase_slice(rng)
     torch.cuda.empty_cache()
     with phase("pool1x1"):
-        k4 = phase_pool1x1()
+        k4 = phase_pool1x1(registers)
     torch.cuda.empty_cache()
     with phase("card_vs_cpu"), full_fp32():
         phase_card_vs_cpu()

@@ -3,7 +3,8 @@
 // map, gathered while a tile is written into shared memory (1x1 rows,
 // 3x3x3 taps, pool_in's pooled rows), against a dense (K, ncols) bf16
 // weight matrix B, with f32 accumulation on the tensor cores. The f32
-// launches and K4 stay on implicit_gemm.cuh.
+// launches stay on implicit_gemm.cuh. K4's bf16 kernel (pool1x1_sm90.cuh)
+// reuses its barriers, TMA, descriptors and wgmma.
 //
 // What bounds it on an H100: the tensor cores at full rate (K3 is about
 // 4.8 TFLOP a bucket-8 forward), unless the gathers of A and the barrier
@@ -663,10 +664,9 @@ Tiling tiling(int ncols, int rows, int first) {
   return t;
 }
 
-// B's tensor map: (K, ncols) bf16 row-major, 64 x 64 boxes, 128-byte
-// swizzle, zero fill outside. cuTensorMapEncodeTiled comes from the driver
-// through cudaGetDriverEntryPoint, so the library does not link libcuda.
-int encode_b(CUtensorMap* map, const void* w, int k, int ncols) {
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint so that
+// the library does not link libcuda; 0 or a cudaError_t.
+int tensor_map_encoder(PFN_cuTensorMapEncodeTiled_v12000* out) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -683,6 +683,16 @@ int encode_b(CUtensorMap* map, const void* w, int k, int ncols) {
       return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  *out = encode;
+  return 0;
+}
+
+// B's tensor map: (K, ncols) bf16 row-major, 64 x 64 boxes, 128-byte
+// swizzle, zero fill outside.
+int encode_b(CUtensorMap* map, const void* w, int k, int ncols) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  const int e = tensor_map_encoder(&encode);
+  if (e != 0) return e;
   cuuint64_t dims[2] = {(cuuint64_t)ncols, (cuuint64_t)k};
   cuuint64_t strides[1] = {(cuuint64_t)ncols * sizeof(bf16)};
   cuuint32_t box[2] = {64, (cuuint32_t)kBK};

@@ -8,9 +8,12 @@ This file imports only torch, numpy and the port, so the tests marked
 On the CPU the card tests skip; what runs here is the wrappers' CPU
 dispatch and refusals, the kernels' host-side constants, and numpy
 emulations of the log-mel, attention, inception (with its pool prologue,
-and as the bf16 launches tile it) and pool + 1x1 kernels' arithmetic held
-to the plain versions.
+and as the bf16 launches tile it) and pool + 1x1 kernels' arithmetic (the
+latter's f32 launch and its bf16 Hopper design) held to the plain
+versions.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -950,9 +953,10 @@ def _k4_weight(c, co, seed=0):
 
 
 def _emulate_pool1x1_kernel(x, k):
-    """csrc/pool1x1.cu in float64 numpy: ``load_a``'s kPoolGemm gather under
-    kNegInf (start from the row itself, skip the 26 neighbours past the map:
-    -inf padding, over rows +- H W, W, 1) and the epilogue's plain cast."""
+    """csrc/pool1x1.cu's f32 launch in float64 numpy: ``load_a``'s
+    kPoolGemm gather under kNegInf (start from the row itself, skip the 26
+    neighbours past the map: -inf padding, over rows +- H W, W, 1) and the
+    epilogue's plain cast."""
     n, c, t, h, w = x.shape
     rows = n * t * h * w
     xr = x.permute(0, 2, 3, 4, 1).reshape(rows, c).double().numpy()
@@ -969,12 +973,108 @@ def _emulate_pool1x1_kernel(x, k):
     return out.reshape(n, t, h, w, -1).transpose(0, 4, 1, 2, 3)
 
 
-@pytest.mark.parametrize("shape,co", [((2, 16, 4, 6, 6), 8),
-                                      ((1, 32, 8, 14, 14), 16),
-                                      ((2, 24, 3, 5, 7), 16)])
+# csrc/pool1x1_sm90.cuh's constants: a halo box is 4 planes x 6 rows x 16
+# columns of 128 bytes (a band of 4 output rows x 14 columns, 64 rows of A
+# with rows 14 and 15 of each 16 unused); the ring's bytes, a B box (64 x
+# 64 bf16), the wgmma widths a column tile takes
+_K4_PLANES, _K4_NB, _K4_SEGW = 4, 6, 16
+_K4_HB, _K4_WB = _K4_NB - 2, _K4_SEGW - 2
+_K4_RING, _K4_BOX = 197632, 8192
+_K4_WIDTHS = (8, 16, 32, 64, 128, 192, 256)
+
+
+def _k4_sm90_geometry(h, w, co):
+    """pool1x1_sm90.cuh's ``geometry``: bands of W and H, the column tile
+    width nw (a wgmma N), the column tiles and the ring's stages (a halo
+    box and k's boxes each)."""
+    col_tiles = -(-co // 256)
+    per = -(-co // col_tiles)
+    nw = next(x for x in _K4_WIDTHS if x >= per)
+    stage = (_K4_PLANES * _K4_NB * _K4_SEGW * 128
+             + -(-nw // 64) * _K4_BOX)
+    return (-(-w // _K4_WB), -(-h // _K4_HB), nw, col_tiles,
+            min(4, _K4_RING // stage))
+
+
+def _emulate_pool1x1_sm90(x, k):
+    """csrc/pool1x1_sm90.cuh (K4's bf16 launch) in numpy: per item (n, a
+    pair of planes t0 and t0 + 1, a band of 4 rows of H and 14 columns of
+    W, a column tile), per 64-channel chunk, the halo box as TMA stages it
+    (planes t0-1..t0+2, rows h0-1..h0+4, columns w0-1..w0+14; zeros past
+    the map and past C); consumer warpgroup cw takes output plane t0 + cw
+    from box planes cw..cw+2: the separable max over T, H and W with
+    positions past the map masked to -inf by index, into A row 16 hr + c
+    (zero where the output lies past the map), and the product of each
+    chunk (f64, exact for bf16 values) added to f32 accumulators; the
+    epilogue keeps the rows and columns inside the output. Returns the f32
+    sums before the cast to bf16, (N, Co, T, H, W)."""
+    n, c, t, h, w = x.shape
+    co = k.shape[1]
+    xs = x.permute(0, 2, 3, 4, 1).double().numpy()       # (N, T, H, W, C)
+    kk = k.double().numpy()
+    nwb, nhb, nw, col_tiles, _ = _k4_sm90_geometry(h, w, co)
+    hb, wb, nk = _K4_HB, _K4_WB, -(-c // 64)
+    xpad = np.zeros((n, t + 3, nhb * hb + 2, nwb * wb + 2, nk * 64))
+    xpad[:, 1:t + 1, 1:h + 1, 1:w + 1, :c] = xs          # TMA's zero fill
+    kpad = np.zeros((nk * 64, col_tiles * nw))
+    kpad[:c, :co] = kk
+    hr, cc = np.divmod(np.arange(64), _K4_SEGW)          # A row 16 hr + c
+    used = cc < wb
+    hr, cc = hr[used], cc[used]
+    out = np.zeros((n, t, h, w, co), np.float32)
+    for ni, t0, h0, w0, col in itertools.product(
+            range(n), range(0, t, 2), range(0, h, hb), range(0, w, wb),
+            range(col_tiles)):
+        # mask by index: plane, row and column inside the map
+        qt = (t0 - 1 + np.arange(_K4_PLANES) >= 0) & (
+            t0 - 1 + np.arange(_K4_PLANES) < t)
+        bh = (h0 - 1 + np.arange(_K4_NB) >= 0) & (h0 - 1 + np.arange(_K4_NB)
+                                                  < h)
+        lw = (w0 - 1 + np.arange(_K4_SEGW) >= 0) & (
+            w0 - 1 + np.arange(_K4_SEGW) < w)
+        ok = qt[:, None, None] & bh[None, :, None] & lw[None, None, :]
+        center = (h0 + hr < h) & (w0 + cc < w)
+        cols = min(nw, co - col * nw)
+        for cw in (0, 1):
+            if t0 + cw >= t:
+                continue                  # T odd: the last pair is one
+            acc = np.zeros((len(hr), nw), np.float32)
+            for kc in range(nk):
+                box = xpad[ni, t0:t0 + _K4_PLANES, h0:h0 + _K4_NB,
+                           w0:w0 + _K4_SEGW, kc * 64:kc * 64 + 64]
+                box = np.where(ok[..., None], box, -np.inf)
+                tm = box[cw:cw + 3].max(axis=0)                      # T
+                hm = np.maximum(np.maximum(tm[:-2], tm[1:-1]), tm[2:])  # H
+                wm = np.maximum(np.maximum(hm[:, :-2], hm[:, 1:-1]),
+                                hm[:, 2:])                           # W
+                a = np.where(center[:, None], wm[hr, cc], 0.0)
+                b = kpad[kc * 64:kc * 64 + 64, col * nw:col * nw + nw]
+                acc = (acc + a @ b).astype(np.float32)
+            out[ni, t0 + cw, h0 + hr[center], w0 + cc[center],
+                col * nw:col * nw + cols] = acc[center, :cols]
+    return out.transpose(0, 4, 1, 2, 3)
+
+
+# the TPU tool's check shapes and (N, C, T, H, W) -> Co cases the emulations
+# share: the tool's six timed shapes at N = 1, T = 1 with H = 1 and W = 2,
+# rows that fill no tile (45 a strip, 135 in all, T odd), C = 200 (a last
+# chunk of 8 channels) with Co = 264 (two column tiles), W = 40 (three W
+# bands)
+_K4_EMULATED = (((2, 16, 4, 6, 6), 8), ((1, 32, 8, 14, 14), 16),
+                ((2, 24, 3, 5, 7), 16),
+                ((1, 512, 8, 14, 14), 64), ((1, 832, 4, 7, 7), 128),
+                ((1, 256, 8, 28, 28), 64), ((1, 480, 8, 14, 14), 64),
+                ((1, 528, 8, 14, 14), 128), ((1, 192, 8, 28, 28), 32),
+                ((2, 16, 1, 1, 2), 8), ((1, 24, 3, 5, 9), 16),
+                ((1, 200, 2, 6, 7), 264), ((1, 8, 2, 3, 40), 16))
+_K4_EMULATED_IDS = [f"{c}x{t}x{h}x{w}-{co}" for (_, c, t, h, w), co
+                    in _K4_EMULATED]
+
+
+@pytest.mark.parametrize("shape,co", _K4_EMULATED[:3])
 def test_pool1x1_kernel_algorithm_matches_plain(shape, co):
-    """K4's arithmetic (emulated, f64) against the plain version (f32) on
-    inputs of both signs, where -inf and zero padding differ: atol 1e-5
+    """K4's f32 arithmetic (emulated, f64) against the plain version (f32)
+    on inputs of both signs, where -inf and zero padding differ: atol 1e-5
     relative to max |plain|. The first two are the TPU tool's check
     shapes; H != W catches a swapped stride."""
     x, k = _normal_input(*shape, seed=10), _k4_weight(shape[1], co, seed=11)
@@ -982,6 +1082,44 @@ def test_pool1x1_kernel_algorithm_matches_plain(shape, co):
     got = _emulate_pool1x1_kernel(x, k)
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("shape,co", _K4_EMULATED[3:],
+                         ids=_K4_EMULATED_IDS[3:])
+def test_pool1x1_f32_algorithm_matches_plain_at_more_shapes(shape, co):
+    """The f32 launch's emulation at the TPU tool's shapes (N = 1) and the
+    edge shapes, as above: atol 1e-5 relative to max |plain|."""
+    x, k = _normal_input(*shape, seed=15), _k4_weight(shape[1], co, seed=16)
+    want = pool3_1x1_plain(x, k).numpy()
+    got = _emulate_pool1x1_kernel(x, k)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("shape,co", _K4_EMULATED, ids=_K4_EMULATED_IDS)
+def test_pool1x1_sm90_algorithm_matches_plain(shape, co):
+    """K4's bf16 design (emulated) against the plain version in f32 on the
+    same bf16-valued inputs of both signs: the pool is exact and the
+    products exact in f64, so the f32 sums agree within atol 1e-5
+    relative to max |plain| (the cast to bf16 is the plain version's too)."""
+    x = _normal_input(*shape, seed=17).bfloat16().float()
+    k = _k4_weight(shape[1], co, seed=18).bfloat16().float()
+    want = pool3_1x1_plain(x, k).numpy()
+    got = _emulate_pool1x1_sm90(x, k)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_pool1x1_sm90_geometry():
+    """The bands, wgmma width, column tiles and ring stages of the bf16
+    design at the TPU tool's shapes (N = Co in one column tile) and at the
+    edge shapes."""
+    assert _k4_sm90_geometry(14, 14, 64) == (1, 4, 64, 1, 3)
+    assert _k4_sm90_geometry(7, 7, 128) == (1, 2, 128, 1, 3)
+    assert _k4_sm90_geometry(28, 28, 32) == (2, 7, 32, 1, 3)
+    assert _k4_sm90_geometry(14, 14, 128) == (1, 4, 128, 1, 3)
+    assert _k4_sm90_geometry(6, 7, 264) == (1, 2, 192, 2, 2)
+    assert _k4_sm90_geometry(3, 40, 256) == (3, 1, 256, 1, 2)
 
 
 def test_pool1x1_cpu_dispatch_uses_plain_and_does_not_count():
@@ -1012,10 +1150,15 @@ def test_pool1x1_wrapper_refuses_what_the_kernel_does_not_take():
         k4._check(_normal_input(1, 12, 4, 5, 5), _k4_weight(12, 8))
 
 
-# the TPU tool's six timed shapes (N, T, H, W, C) -> Co, at N = 2 clips
+# the TPU tool's six timed shapes (N, T, H, W, C) -> Co, at N = 2 clips,
+# then the edge shapes of the emulations: T = 1, H = 1, W = 2; 135 rows;
+# C = 200 with Co = 264; W = 40 (two W bands); Co = 8 and 16 (the narrow
+# wgmma widths)
 _K4_SHAPES = (((2, 8, 14, 14, 512), 64), ((2, 4, 7, 7, 832), 128),
               ((2, 8, 28, 28, 256), 64), ((2, 8, 14, 14, 480), 64),
-              ((2, 8, 14, 14, 528), 128), ((2, 8, 28, 28, 192), 32))
+              ((2, 8, 14, 14, 528), 128), ((2, 8, 28, 28, 192), 32),
+              ((2, 1, 1, 2, 16), 8), ((1, 3, 5, 9, 24), 16),
+              ((1, 2, 6, 7, 200), 264), ((1, 2, 3, 40, 8), 16))
 
 
 @pytest.mark.cuda
@@ -1023,6 +1166,8 @@ _K4_SHAPES = (((2, 8, 14, 14, 512), 64), ((2, 4, 7, 7, 832), 128),
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("shape,co", _K4_SHAPES,
                          ids=[f"{s[2]}x{s[3]}x{s[4]}-{co}"
+                              + ("" if s[0] == 2 and s[1] > 1 else
+                                 f"-n{s[0]}t{s[1]}")
                               for s, co in _K4_SHAPES])
 def test_pool1x1_kernel_matches_plain_on_card(shape, co, dtype, tol,
                                               cuda_device, no_tf32):
