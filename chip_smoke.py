@@ -52,7 +52,22 @@ failure raises and the script exits non-zero:
    cuDNN alone;
 8. card against CPU: the flagship, flag on, one seq-4 request, card f32
    (kernels, TF32 off) against CPU f32 (plain versions), V/A max abs delta
-   <= 1e-3, with the gate off and on; card bf16 against card f32.
+   <= 1e-3, with the gate off and on; card bf16 against card f32;
+9. train: the flagship (flag on, bf16, every backbone frozen) through
+   ``train/loops.init_state`` with the config's SGD defaults and
+   ``make_train_step``: 3 steps at B = 8, S = 16 with their launches
+   asserted (1 log-mel, 12 attention, 9 inception a step), loss and ms
+   each (CUDA events), every trainable tensor moved in some step (but
+   one the forward never uses, listed) and every backbone parameter and
+   BN buffer unchanged (asserted), the p50 of 10 more
+   steps, and one step under torch.profiler (forward, backward and
+   optimizer device ms, the attention backward's, the idle share, the top
+   operations); one step at B = 1, S = 4, card f32 (TF32 off) against CPU
+   f32 from the same weights, loss within 1e-4 and updates within 1e-3
+   of the step's largest; then ``eval/stitch.validate`` over the ordered
+   windows of two synthetic videos (481 and 530 frames) on the trained
+   weights, card f32 against CPU f32 at 32 px, stitched CCC within 1e-3,
+   and the trained bf16 model at 112 px.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 kernels summary JSON, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -879,6 +894,323 @@ def phase_card_vs_cpu() -> None:
                              f"absorbed {d_abs} (limit 1e-3)")
 
 
+# ---------------------------------------------------------------------------
+# train: the flagship's frozen-backbone train step, eval step and stitcher
+# ---------------------------------------------------------------------------
+TRAIN_B, TRAIN_S = 8, 16
+TRAIN_TIMED_STEPS = 10
+# the stitched eval: two synthetic videos in ordered windows of S frames
+STITCH_VIDEOS = (("video_a", 481), ("video_b", 530))
+
+
+def train_config(model_config, **opt):
+    """The config of a model: its backbones, every one frozen (the
+    defaults), SGD with Nesterov momentum and ``mystep`` (the defaults,
+    lr 1e-4, unless ``opt`` says otherwise)."""
+    from jmt_tpu_torch.core.config import Config, ModelParams, OptimParams
+    return Config(model_params=ModelParams(
+        l_vision_backbones=list(model_config["vision_backbones"]),
+        l_audio_backbones=list(model_config["audio_backbones"]),
+        opt=OptimParams(**opt)))
+
+
+def train_arrays(rng, b: int, seq: int, img: int = 112) -> dict:
+    """A request's inputs, labels uniform in [-1, 1] with -5 in the last
+    seq // 5 slots of row 0, ``row_weight`` with its last row zero (when
+    b > 1)."""
+    clips, audio, wavlm = request(rng, b, seq, img)
+    labels = rng.uniform(-1, 1, (2, b, seq)).astype(np.float32)
+    labels[:, 0, -max(1, seq // 5):] = -5.0
+    row_weight = np.ones(b, np.float32)
+    if b > 1:
+        row_weight[-1] = 0.0
+    return {"clips": clips, "audio": audio, "wavlm": wavlm,
+            "labels_v": labels[0], "labels_a": labels[1],
+            "row_weight": row_weight}
+
+
+def events_ms(fn):
+    """fn()'s result and its time on the card's stream (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def snapshot(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def moved_and_changed(model, before: dict, trainable) -> tuple:
+    """(trainable tensors that moved, backbone tensors, parameters and BN
+    buffers, that changed) against the ``before`` state dict."""
+    after = model.state_dict()
+    moved = {n for n in trainable if not torch.equal(after[n], before[n])}
+    changed = [k for k, v in after.items() if k.startswith("backbones.")
+               and not torch.equal(v, before[k])]
+    return moved, changed
+
+
+TRAIN_RANGES = ("train_step.forward", "train_step.backward",
+                "train_step.optimizer", "attention_core_bwd")
+
+
+def profile_train_step(step, state, arrays, gen) -> dict:
+    """One train step under torch.profiler: device time by phase, busy
+    and idle share against the host clock, the top operations. The
+    forward's is the device time of the kernels that start inside the
+    ``train_step.forward`` range's span on the device (the kernels
+    launched through ctypes, K1, K2 and K3, have no op to be attributed
+    to); the optimizer's, that of the kernels its range launched; the
+    backward's, the rest (they run on autograd's thread); the attention
+    backward's, that of the kernels the ``attention_core_bwd`` ranges
+    launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(10):   # a process's first traces can come back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, arrays, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((ev.self_device_time_total / 1e3, ev.key[:90],
+                        ev.count) for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA
+                       and ev.key not in TRAIN_RANGES
+                       and ev.self_device_time_total > 0), reverse=True)
+        if rows:
+            break
+    else:
+        raise RuntimeError("torch.profiler traced no device operation of "
+                           "the train step")
+    events = prof.events()
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA
+               and ev.name not in TRAIN_RANGES]
+    launched = dict.fromkeys(TRAIN_RANGES, 0.0)  # kernels a CPU range launched
+    fwd_span = None
+    for ev in events:
+        if ev.name in TRAIN_RANGES and ev.device_type == DeviceType.CPU:
+            launched[ev.name] += ev.device_time_total / 1e3
+        elif ev.name == "train_step.forward":
+            fwd_span = ev.time_range
+    if fwd_span is None:
+        raise RuntimeError("the trace has no device span of "
+                           "train_step.forward")
+    busy = sum(ev.device_time_total for ev in kernels) / 1e3
+    fwd = sum(ev.device_time_total for ev in kernels
+              if fwd_span.start <= ev.time_range.start < fwd_span.end) / 1e3
+    opt = launched["train_step.optimizer"]
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "forward_device_ms": fwd, "optimizer_device_ms": opt,
+            "backward_device_ms": busy - fwd - opt,
+            "attention_bwd_device_ms": launched["attention_core_bwd"],
+            "forward_device_span_ms": (fwd_span.end - fwd_span.start) / 1e3,
+            "kernels": len(kernels),
+            "top": [{"ms": r[0], "name": r[1], "calls": r[2]}
+                    for r in rows[:20]]}
+
+
+def phase_train(rng):
+    """The flagship's train step on the card: init_state, 3 counted steps
+    (launches, loss, ms each), what moved and what stayed, the p50 of 10
+    more, one profiled step. Returns the trained state."""
+    from jmt_tpu_torch.models.jmt_model import JMTModel
+    from jmt_tpu_torch.train import loops
+    model = JMTModel(**FLAGSHIP_CONFIG, dtype=torch.bfloat16,
+                     i3d_fused_inception=True)
+    state = loops.init_state(model, train_config(FLAGSHIP_CONFIG),
+                             torch.Generator().manual_seed(0))
+    step = loops.make_train_step(model)
+    arrays = {k: torch.from_numpy(x).cuda()
+              for k, x in train_arrays(rng, TRAIN_B, TRAIN_S).items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    moved, changed = set(), []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        before = snapshot(model)
+        ((loss, v, a), ms), launches = counted(
+            lambda: events_ms(lambda: step(state, arrays, gen)))
+        moved_now, changed_now = moved_and_changed(model, before,
+                                                   state.trainable)
+        moved |= moved_now
+        changed += changed_now
+        emit({"phase": "train_step", "step": i, "batch": TRAIN_B,
+              "seq": TRAIN_S, "loss": float(loss), "ms": ms, **launches})
+        if launches != PER_FORWARD["flagship"]:
+            raise AssertionError(f"train step {i}: expected launches "
+                                 f"{PER_FORWARD['flagship']}, got "
+                                 f"{launches}")
+        if not (torch.isfinite(loss) and v.shape == a.shape ==
+                (TRAIN_B, TRAIN_S) and torch.isfinite(v).all()
+                and torch.isfinite(a).all()):
+            raise AssertionError(f"train step {i}: loss {float(loss)}, "
+                                 f"outputs {tuple(v.shape)}")
+    # a tensor moves in some step (the V/A heads' last bias moves a few
+    # ulps a step at the defaults' lr 1e-4, back and forth: CCC's
+    # gradient is nearly shift-free); torch's optimizers skip a tensor the
+    # forward never uses (the visual fusion's 768 -> 512 fc: both vision
+    # streams are 512-d)
+    unused = [n for n, p in model.named_parameters()
+              if p.requires_grad and p.grad is None]
+    still = [n for n in state.trainable if n not in moved]
+    emit({"phase": "train_state", "trainable": len(state.trainable),
+          "frozen": len(state.frozen), "not_moved": still,
+          "no_gradient": unused, "frozen_changed": changed,
+          "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    if still != unused or changed or not state.frozen:
+        raise AssertionError(f"train: trainable tensors that did not move "
+                             f"in any step {still} (no gradient {unused}), "
+                             f"frozen ones that changed {changed[:5]}")
+    times = sorted(events_ms(lambda: step(state, arrays, gen))[1]
+                   for _ in range(TRAIN_TIMED_STEPS))
+    emit({"phase": "train_latency", "batch": TRAIN_B, "seq": TRAIN_S,
+          "steps": TRAIN_TIMED_STEPS, "p50_ms": times[len(times) // 2],
+          "min_ms": times[0], "max_ms": times[-1],
+          "clips_per_s": TRAIN_B * TRAIN_S / times[len(times) // 2] * 1e3})
+    emit({"phase": "train_profile", "batch": TRAIN_B,
+          **profile_train_step(step, state, arrays, gen)})
+    return state
+
+
+def update_gap(model, before: dict, want_after: dict, want_before: dict,
+               trainable) -> dict:
+    """The largest gap between two runs' updates (new - old) of the
+    trainable tensors, less an ulp of the new value: against the step's
+    largest |update| and against each tensor's own."""
+    after = model.state_dict()
+    gaps, scales = {}, {}
+    for n in trainable:
+        got = (after[n] - before[n]).cpu().double()
+        want_new = want_after[n].cpu().double()
+        want = want_new - want_before[n].cpu().double()
+        slack = torch.from_numpy(np.spacing(np.abs(
+            want_after[n].cpu().numpy()))).double()
+        gaps[n] = float(((got - want).abs() - slack).clamp(min=0).max())
+        scales[n] = float(want.abs().max())
+    step_scale = max(scales.values())
+    worst = max(gaps, key=lambda n: gaps[n] / max(scales[n], 1e-30))
+    return {"of_step_scale": max(gaps.values()) / step_scale,
+            "step_scale": step_scale, "worst_tensor": worst,
+            "worst_of_own_scale": gaps[worst] / max(scales[worst], 1e-30)}
+
+
+def phase_train_card_vs_cpu() -> None:
+    """One flagship train step at B = 1, S = 4 from the same weights and
+    colour factors, SGD at lr 1e-2 (the CPU tests'): card f32 (kernels,
+    TF32 off) against CPU f32 (plain versions); loss within 1e-4, updates
+    within 1e-3 of the step's largest |update| (the CPU tests' bound for
+    the slice, whose fusion the flagship shares,
+    ``tests/test_torch_train.py``); the worst tensor against its own
+    largest update is printed."""
+    from jmt_tpu_torch.data.transforms import sample_color_factors
+    from jmt_tpu_torch.train import loops
+    rng = np.random.default_rng(2)
+    arrays = train_arrays(rng, 1, 4)
+    factors = sample_color_factors(torch.Generator().manual_seed(1), 4)
+    cfg = dict(FLAGSHIP_CONFIG, i3d_fused_inception=True)
+    sd = make_model(cfg, torch.bfloat16).state_dict()
+    runs = {}
+    for name, dev in (("card_f32", None), ("cpu_f32", "cpu")):
+        model = make_model(cfg, None)
+        model.load_state_dict(sd)
+        state = loops.init_state(model, train_config(cfg, lr=1e-2),
+                                 device=dev)
+        step = loops.make_train_step(model, device=dev)
+        before = snapshot(model)
+        (loss, _, _), launches = counted(
+            lambda: step(state, arrays, color_factors=factors))
+        emit({"phase": "train_card_vs_cpu_launches", "run": name,
+              **launches})
+        runs[name] = (model, state, before, float(loss))
+    (card, state, before, loss_card), (cpu, _, cpu_before, loss_cpu) = \
+        runs["card_f32"], runs["cpu_f32"]
+    gap = update_gap(card, before, cpu.state_dict(), cpu_before,
+                     state.trainable)
+    emit({"phase": "train_card_vs_cpu", "loss_card": loss_card,
+          "loss_cpu": loss_cpu, "loss_delta": abs(loss_card - loss_cpu),
+          **gap})
+    if not (abs(loss_card - loss_cpu) <= 1e-4
+            and gap["of_step_scale"] <= 1e-3):
+        raise AssertionError(f"train step card f32 vs CPU f32: loss "
+                             f"{loss_card} vs {loss_cpu}, updates {gap}")
+
+
+def stitch_batches(seed: int, img: int, b: int = TRAIN_B,
+                   seq: int = TRAIN_S):
+    """The ordered windows of the two synthetic videos, b windows a batch
+    (the last padded, ``n_real`` set), each made from ``seed`` when it is
+    asked for: labels follow slow sines with noise and a few -5 slots."""
+    from types import SimpleNamespace
+    rows = [(vid, length, w) for vid, length in STITCH_VIDEOS
+            for w in range(-(-length // seq))]
+    for i in range(0, len(rows), b):
+        part = rows[i:i + b]
+        n_real = len(part)
+        part = part + [part[0]] * (b - n_real)
+        rng = np.random.default_rng([seed, i])
+        clips, audio, wavlm = request(rng, b, seq, img)
+        anchors = np.stack([np.arange(w * seq + 1, w * seq + seq + 1)
+                            for _, _, w in part])
+        noise = 0.2 * rng.normal(size=(2,) + anchors.shape)
+        lv = np.clip(np.sin(anchors / 40.0) + noise[0], -1, 1)
+        la = np.clip(np.cos(anchors / 55.0) + noise[1], -1, 1)
+        lv[rng.random(anchors.shape) < 0.05] = -5.0
+        yield SimpleNamespace(
+            clips=clips, audio=audio, wavlm=wavlm, anchors=anchors,
+            videos=[p[0] for p in part], lengths=[p[1] for p in part],
+            labels_v=lv.astype(np.float32), labels_a=la.astype(np.float32),
+            n_real=n_real)
+
+
+def phase_stitched_eval(trained) -> None:
+    """``validate`` (make_eval_step over the ordered windows, Stitcher,
+    scores) on the trained state's weights: card f32 against CPU f32 at 32
+    px clips (the I3D stem fold at 64), CCC V and A within 1e-3; then the
+    trained bf16 flagship itself at 112 px on the card, timed."""
+    from jmt_tpu_torch.eval import stitch
+    from jmt_tpu_torch.train import loops
+    sd = trained.model.state_dict()
+    scores = {}
+    with full_fp32():
+        for name, dev in (("card_f32", None), ("cpu_f32", "cpu")):
+            cfg = dict(FLAGSHIP_CONFIG, i3d_fused_inception=True,
+                       i3d_input_size=64)
+            model = make_model(cfg, None)
+            model.load_state_dict(sd)
+            state = loops.init_state(model, train_config(cfg), device=dev)
+            step = loops.make_eval_step(model, device=dev)
+            t0 = time.perf_counter()
+            scores[name] = stitch.validate(step, state,
+                                           stitch_batches(3, img=32))
+            emit({"phase": "stitched_eval", "run": name, "img": 32,
+                  "ccc_v": scores[name][0], "ccc_a": scores[name][1],
+                  "seconds": time.perf_counter() - t0})
+    delta = max(abs(x - y) for x, y in zip(scores["card_f32"],
+                                           scores["cpu_f32"]))
+    if not (delta <= 1e-3 and all(np.isfinite(scores["card_f32"]))):
+        raise AssertionError(f"stitched CCC card f32 {scores['card_f32']} "
+                             f"vs CPU f32 {scores['cpu_f32']}")
+    step = loops.make_eval_step(trained.model)
+    t0 = time.perf_counter()
+    (ccc_v, ccc_a), launches = counted(
+        lambda: stitch.validate(step, trained, stitch_batches(4, img=112)))
+    emit({"phase": "stitched_eval", "run": "card_bf16", "img": 112,
+          "ccc_v": ccc_v, "ccc_a": ccc_a,
+          "seconds": time.perf_counter() - t0,
+          "card_f32_vs_cpu_f32_ccc_delta": delta, **launches})
+    windows = sum(-(-length // TRAIN_S) for _, length in STITCH_VIDEOS)
+    forwards = -(-windows // TRAIN_B)
+    expected = {k: v * forwards for k, v in PER_FORWARD["flagship"].items()}
+    if launches != expected or not np.isfinite([ccc_v, ccc_a]).all():
+        raise AssertionError(f"stitched eval bf16: launches {launches} "
+                             f"(expected {expected}), CCC {ccc_v}, {ccc_a}")
+
+
 @contextlib.contextmanager
 def full_fp32():
     """TF32 off for matmul and cuDNN, for the f32 comparisons."""
@@ -1005,6 +1337,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("card_vs_cpu"), full_fp32():
         phase_card_vs_cpu()
+    torch.cuda.empty_cache()
+    with phase("train"):
+        trained = phase_train(np.random.default_rng(5))
+    with phase("train_card_vs_cpu"), full_fp32():
+        phase_train_card_vs_cpu()
+    with phase("stitched_eval"):
+        phase_stitched_eval(trained)
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     kernels[2]["pool_in"] = dict(

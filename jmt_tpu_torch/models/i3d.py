@@ -1,9 +1,10 @@
-"""Inception-v1 I3D backbone + TCN temporal head, eval mode.
+"""Inception-v1 I3D backbone + TCN temporal head.
 
 Counterpart of ``jmt_tpu/models/i3d.py``: ``Unit3D`` (TF-SAME conv3d
-without bias, BN eps 1e-3, ReLU), ``InceptionModule``, ``InceptionI3d`` on
-its feature path (Mixed_5c -> AvgPool3d((2, H, W)) -> (N, T-1, 1024)) and
-``I3DTCN`` (I3D features -> 4-layer TCN(1024 -> 512, k=5) -> (N, T-1, 512)).
+without bias, BN eps 1e-3 and momentum 0.01, ReLU), ``InceptionModule``,
+``InceptionI3d`` on its feature path (Mixed_5c -> AvgPool3d((2, H, W)) ->
+(N, T-1, 1024)) and ``I3DTCN`` (I3D features -> 4-layer TCN(1024 -> 512,
+k=5, dropout 0.1) -> (N, T-1, 512)).
 
 Torch layout (N, C, T, H, W). After the stem the trunk runs in
 ``torch.channels_last_3d`` memory: cuDNN gets its NDHWC layout and the
@@ -45,7 +46,8 @@ class Unit3D(nn.Module):
         self.kernel, self.stride = tuple(kernel), tuple(stride)
         self.dtype = dtype
         self.conv3d = ConvNd(in_ch, out_ch, kernel, stride, dtype=dtype)
-        self.bn = TorchBatchNorm(out_ch, eps=BN_EPS, dtype=dtype)
+        self.bn = TorchBatchNorm(out_ch, eps=BN_EPS, momentum=0.01,
+                                 dtype=dtype)
 
     def epilogue(self, y: torch.Tensor) -> torch.Tensor:
         """BN + ReLU on a precomputed conv output."""
@@ -78,7 +80,10 @@ class InceptionModule(nn.Module):
     Unfused: the b0 | b1a | b2a 1x1 convs run as ONE conv (weights
     concatenated on the output axis), then each branch's BN + ReLU on its
     split, as the JAX module does. Fused: BN is folded into the weights and
-    the whole module is kernel K3 (``ops/kernels/inception.py``). ``pool_in``
+    the whole module is kernel K3 (``ops/kernels/inception.py``); only
+    while its BN is in eval mode, as JAX gates it (train-mode BN takes the
+    unfused path). K3 has no backward: a fused module whose parameters
+    need a gradient raises. ``pool_in``
     (the preceding MaxPool3dSamePadding) is applied first, except on the
     fused path with the gate ``ops/kernels/inception._ABSORB_POOLS`` on
     (off by default, as in JAX) and a pool the kernel absorbs
@@ -107,9 +112,18 @@ class InceptionModule(nn.Module):
         return (u.conv3d.weight.permute(2, 3, 4, 1, 0),  # (kt, kh, kw, ci, co)
                 u.bn.weight, u.bn.bias, u.bn.running_mean, u.bn.running_var)
 
+    def _check_no_backward(self) -> None:
+        if torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in self.parameters()):
+            raise NotImplementedError(
+                "i3d_fused_inception=True runs kernel K3, which has no "
+                "backward: finetuning I3D with running-statistics BN "
+                "(finetune_bn='frozen') needs i3d_fused_inception=False")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
-        if self.fused:
+        if self.fused and not self.b0.bn.training:
+            self._check_no_backward()
             absorb = (inception_kernel._ABSORB_POOLS
                       and pool_absorbable(self.pool_in, x.shape))
             if self.pool_in is not None and not absorb:
@@ -217,7 +231,8 @@ class I3DTCN(nn.Module):
         super().__init__()
         self.i3d_WSDDA = InceptionI3d(fused_inception, dtype=dtype)
         self.temporal = TemporalConvNet(1024, (512, 512, 512, 512),
-                                        kernel_size=5, dtype=dtype)
+                                        kernel_size=5, dropout=0.1,
+                                        dtype=dtype)
 
     def forward(self, x: torch.Tensor,
                 stem_upsample2x: bool = False) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """The composed model: backbones -> intra-modal fusion -> JMT -> heads.
 
 Counterpart of ``jmt_tpu/models/jmt_model.py`` ``JMTModel`` (goal
-TRAINING, eval forward) over the lattice the port covers:
+TRAINING, eval and train forward) over the lattice the port covers:
 
 * vision {R2D1}, {I3D}, {R2D1, I3D}; the pair fused by
   'encoder_plus_self_attention' (IntraModalTransformerFusion over
@@ -10,6 +10,13 @@ TRAINING, eval forward) over the lattice the port covers:
   fused by 'encoder_plus_self_attention' or 'feat_concat_fc'
   (FcLayer(1280 -> 512));
 * JMT 'TRANSFORMER' with the SELF_ATTEN head, then the V/A regressors.
+
+Modes follow the reference's training loop: ``model.train()`` puts every
+module in train mode, then every backbone not in ``finetune`` back in eval
+mode (running-statistics BN, no dropout), and with
+``finetune_bn="frozen"`` the BN of the finetuned ones too; ``model.eval()``
+is the eval forward. Parameters of the frozen backbones are the caller's
+to exclude (``train/state.partition_params``).
 
 Keys follow the reference's assembly: ``backbones.*``,
 ``transformer_visio_modality_fusion.*``, ``fc_layer_for_video_concat.*``,
@@ -27,6 +34,7 @@ from jmt_tpu_torch.models.fusion import TwoTransformers
 from jmt_tpu_torch.models.intra_modal import (FcLayer,
                                               IntraModalTransformerFusion)
 from jmt_tpu_torch.models.tsav import TwoStreamBackbones
+from jmt_tpu_torch.ops.norm import TorchBatchNorm
 
 
 def _intra_modal(kind: str, concat_dim: int, num_heads: int,
@@ -47,16 +55,24 @@ class JMTModel(nn.Module):
                  num_heads: int = 1, num_layers: int = 1,
                  r2d1_reduce: str = "MAX", i3d_input_size: int = 224,
                  i3d_fused_inception: Union[bool, str] = "auto",
-                 i3d_chunk: int = 0,
+                 i3d_chunk: int = 0, v_dropout: float = 0.0,
+                 a_dropout: float = 0.0, finetune: Sequence[str] = (),
+                 finetune_bn: str = "batch",
                  dtype: Optional[torch.dtype] = None):
         """i3d_fused_inception: True runs the nine inception modules as
         kernel K3; "auto" resolves to False, as in the JAX package, until a
         measurement on this card says otherwise (``PERF.md`` records both
-        paths' times)."""
+        paths' times). finetune: the backbones (R2D1, I3D, ResNet18) that
+        train; finetune_bn: "batch" (train-mode BN in them) or "frozen"
+        (running statistics)."""
         super().__init__()
         self.vision_backbones = tuple(vision_backbones)
         self.audio_backbones = tuple(audio_backbones)
         self.dtype = dtype
+        if finetune_bn not in ("batch", "frozen"):
+            raise ValueError(f"finetune_bn={finetune_bn!r}")
+        self.finetune = tuple(finetune)
+        self.finetune_bn = finetune_bn
         if not self.vision_backbones or \
                 not set(self.vision_backbones) <= {"R2D1", "I3D"}:
             raise NotImplementedError(
@@ -87,7 +103,20 @@ class JMTModel(nn.Module):
             self.fc_layer_for_audio_concat = FcLayer(768, dtype=dtype)
 
         self.fusion_model = TwoTransformers(
-            num_heads=num_heads, num_layers=num_layers, dtype=dtype)
+            v_dropout=v_dropout, a_dropout=a_dropout, num_heads=num_heads,
+            num_layers=num_layers, dtype=dtype)
+
+    def train(self, mode: bool = True) -> "JMTModel":
+        super().train(mode)
+        if mode:
+            for name, backbone in self.backbones.by_name().items():
+                if name not in self.finetune:
+                    backbone.eval()
+                elif self.finetune_bn == "frozen":
+                    for mod in backbone.modules():
+                        if isinstance(mod, TorchBatchNorm):
+                            mod.eval()
+        return self
 
     @property
     def use_wavlm(self) -> bool:

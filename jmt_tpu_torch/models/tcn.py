@@ -1,8 +1,9 @@
-"""Temporal Convolutional Network (dilated causal conv stack), eval mode.
+"""Temporal Convolutional Network (dilated causal conv stack).
 
 Counterpart of ``jmt_tpu/models/tcn.py``: ``TemporalBlock`` is two
 weight-normed dilated causal Conv1d, each followed by LeakyReLU(0.01) and a
-channel dropout (a no-op at inference), plus a 1x1 downsample residual when
+channel dropout (``nn.Dropout1d``: whole (sample, channel) rows, built in
+eval mode; ``model.train()`` switches it), plus a 1x1 downsample residual when
 the widths differ; ``TemporalConvNet`` stacks blocks with dilation 2**i.
 Torch layout (N, C, L).
 
@@ -27,17 +28,20 @@ from jmt_tpu_torch.ops.conv import WeightNormConv1d
 
 class TemporalBlock(nn.Module):
     def __init__(self, n_inputs: int, n_outputs: int, kernel_size: int,
-                 dilation: int, dtype: Optional[torch.dtype] = None):
+                 dilation: int, dropout: float = 0.2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv1 = WeightNormConv1d(n_inputs, n_outputs, kernel_size,
                                       dilation, dtype=dtype)
         self.conv2 = WeightNormConv1d(n_outputs, n_outputs, kernel_size,
                                       dilation, dtype=dtype)
         # the causal pad lives in the convs, so the chomp slots are
-        # identities, and dropout is one at inference
+        # identities
         self.net = nn.Sequential(
-            self.conv1, nn.Identity(), nn.LeakyReLU(0.01), nn.Identity(),
-            self.conv2, nn.Identity(), nn.LeakyReLU(0.01), nn.Identity())
+            self.conv1, nn.Identity(), nn.LeakyReLU(0.01),
+            nn.Dropout1d(dropout).eval(),
+            self.conv2, nn.Identity(), nn.LeakyReLU(0.01),
+            nn.Dropout1d(dropout).eval())
         self.downsample = (ConvNd(n_inputs, n_outputs, (1,), dtype=dtype,
                                   bias=True)
                            if n_inputs != n_outputs else None)
@@ -50,13 +54,14 @@ class TemporalBlock(nn.Module):
 
 class TemporalConvNet(nn.Module):
     def __init__(self, num_inputs: int, num_channels: Sequence[int],
-                 kernel_size: int = 2, dtype: Optional[torch.dtype] = None):
+                 kernel_size: int = 2, dropout: float = 0.2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         blocks = []
         for i, ch in enumerate(num_channels):
             cin = num_inputs if i == 0 else num_channels[i - 1]
             blocks.append(TemporalBlock(cin, ch, kernel_size, 2 ** i,
-                                        dtype=dtype))
+                                        dropout=dropout, dtype=dtype))
         self.network = nn.Sequential(*blocks)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Two-stream aural-visual backbone container.
 
-Counterpart of ``jmt_tpu/models/tsav.py`` ``TwoStreamBackbones`` (eval
-forward): the audio ResNet-18 on the log-mel spectrogram, the R(2+1)D-18
+Counterpart of ``jmt_tpu/models/tsav.py`` ``TwoStreamBackbones``: the
+audio ResNet-18 on the log-mel spectrogram, the R(2+1)D-18
 vision backbone with the MAX / AVG / FLATTEN feature reduce, and the
 I3D+TCN vision backbone with a max over time. The (B, S, ...) batch is
 flattened to (B*S, ...) and each backbone runs once on it (I3D optionally
@@ -89,6 +89,14 @@ class TwoStreamBackbones(nn.Module):
                                      dtype=dtype)
         if "ResNet18" in self.audio_backbones:
             self.audio_resnet18 = AudioModel(dtype=dtype)
+
+    def by_name(self) -> Dict[str, nn.Module]:
+        """The backbones in use by their config names (R2D1, I3D,
+        ResNet18), the units that are frozen or finetuned whole."""
+        names = {"R2D1": "vision_r2d1", "I3D": "vision_i3d",
+                 "ResNet18": "audio_resnet18"}
+        return {k: getattr(self, v) for k, v in names.items()
+                if hasattr(self, v)}
 
     def _i3d_trunk(self, x: torch.Tensor) -> torch.Tensor:
         """x (N, 3, T, H, W) -> (N, T', 512)."""

@@ -7,9 +7,10 @@ module's: ``in_proj_weight`` (3E, E), ``in_proj_bias``, ``out_proj.weight``,
 ``out_proj.bias``.
 
 The attention core runs the CUDA kernel of ``ops/kernels/fused_attention.py``
-on CUDA tensors and its plain version on CPU tensors. Its backward is the
-plain torch formula, as in the JAX package (``_attention_bwd``): the TPU
-kernel had no backward either.
+on CUDA tensors and its plain version on CPU tensors. Its backward is
+``attention_core_bwd``: torch matmuls, the counterpart of the JAX
+package's backward (``_attention_bwd``, the XLA VJP of ``_core_xla``); the
+TPU kernel had no backward either.
 """
 from __future__ import annotations
 
@@ -18,14 +19,40 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from jmt_tpu_torch.models.common import Linear, cast
-from jmt_tpu_torch.ops.kernels.fused_attention import (attention_plain,
-                                                       fused_attention)
+from jmt_tpu_torch.ops.kernels.fused_attention import fused_attention
+
+
+def attention_core_bwd(q_scaled: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, g: torch.Tensor):
+    """Gradients (dq, dk, dv) of softmax(q kᵀ) v at the cotangent g, over
+    (BH, L, D) tensors, with the roundings of ``jax.vjp`` of the JAX
+    package's ``_core_xla``: S and the products in f32; P = softmax(S) in
+    v's dtype for dV; dP rounded to v's dtype, as P's cotangent; the
+    softmax backward on the f32 P; each gradient cast to its input's
+    dtype. Runs inside the ``torch.profiler`` range
+    ``attention_core_bwd``."""
+    with record_function("attention_core_bwd"):
+        return _core_bwd(q_scaled, k, v, g)
+
+
+def _core_bwd(q_scaled, k, v, g):
+    f32 = torch.float32
+    p32 = torch.softmax(torch.matmul(q_scaled.to(f32),
+                                     k.to(f32).transpose(-1, -2)), dim=-1)
+    g32 = g.to(f32)
+    dv = torch.matmul(p32.to(v.dtype).to(f32).transpose(-1, -2), g32)
+    dp = torch.matmul(g32, v.to(f32).transpose(-1, -2)).to(v.dtype).to(f32)
+    ds = p32 * (dp - torch.sum(dp * p32, dim=-1, keepdim=True))
+    dq = torch.matmul(ds, k.to(f32))
+    dk = torch.matmul(ds.transpose(-1, -2), q_scaled.to(f32))
+    return dq.to(q_scaled.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 class _AttentionCore(torch.autograd.Function):
-    """(BH, L, D) core: the kernel forward, the plain formula's backward."""
+    """(BH, L, D) core: the kernel forward, ``attention_core_bwd``."""
 
     @staticmethod
     def forward(ctx, q_scaled, k, v):
@@ -34,10 +61,7 @@ class _AttentionCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
-            leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
-            out = attention_plain(*leaves)
-            return torch.autograd.grad(out, leaves, g)
+        return attention_core_bwd(*ctx.saved_tensors, g)
 
 
 def attention_core(q_scaled: torch.Tensor, k: torch.Tensor,

@@ -1,11 +1,19 @@
-"""BatchNorm with torch semantics, eval mode (running statistics).
+"""BatchNorm with torch semantics.
 
-Counterpart of ``jmt_tpu/ops/norm.py`` ``TorchBatchNorm`` with
-``use_running_average=True``: normalize with the running mean and variance
-in fp32, apply the affine scale and bias, cast to the compute dtype. The
-state-dict keys are torch BatchNorm's (``weight``, ``bias``,
-``running_mean``, ``running_var``, ``num_batches_tracked``). Train-mode
-batch statistics are not part of the serving path.
+Counterpart of ``jmt_tpu/ops/norm.py`` ``TorchBatchNorm``, in fp32 whatever
+the compute dtype, the output cast to it:
+
+* eval mode (``module.eval()``, the JAX ``use_running_average=True``):
+  normalize with the running mean and variance;
+* train mode: normalize with the batch mean and the BIASED batch variance,
+  and update the running variance with the UNBIASED one, with torch's
+  momentum convention ``new = (1 - m) old + m batch`` (0.1 by default;
+  I3D's units pass 0.01); ``num_batches_tracked`` counts the updates.
+
+A new module starts in eval mode, as the JAX module's default is the
+running statistics; ``model.train()`` switches it. The state-dict keys are
+torch BatchNorm's (``weight``, ``bias``, ``running_mean``,
+``running_var``, ``num_batches_tracked``).
 """
 from __future__ import annotations
 
@@ -20,9 +28,10 @@ class TorchBatchNorm(nn.Module):
     """Channel axis 1 (NC..., torch layout)."""
 
     def __init__(self, features: int, eps: float = 1e-5,
-                 dtype: Optional[torch.dtype] = None):
+                 momentum: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -30,6 +39,7 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
+        self.train(False)
 
     @torch.no_grad()
     def reset_parameters(self) -> None:
@@ -40,6 +50,9 @@ class TorchBatchNorm(nn.Module):
         self.num_batches_tracked.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            self.num_batches_tracked.add_(1)
         y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, training=False, eps=self.eps)
+                         self.weight, self.bias, training=self.training,
+                         momentum=self.momentum, eps=self.eps)
         return y.to(self.dtype) if self.dtype is not None else y

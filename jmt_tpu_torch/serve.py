@@ -24,7 +24,7 @@ import torch
 
 from jmt_tpu_torch.device import resolve_device
 from jmt_tpu_torch.ops.mel import AUDIO_SAMPLES
-from jmt_tpu_torch.train.loops import preprocess
+from jmt_tpu_torch.train.loops import eval_forward
 
 
 class InferenceServer:
@@ -46,9 +46,7 @@ class InferenceServer:
     def forward(self, arrays: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One bucket-shaped batch of device tensors -> (vouts, aouts)."""
-        with torch.inference_mode():
-            spec, clips = preprocess(self.model, arrays)
-            return self.model(spec, clips, arrays.get("wavlm"))
+        return eval_forward(self.model, arrays)
 
     def _check(self, clips: np.ndarray, audio: np.ndarray,
                wavlm: Optional[np.ndarray]) -> None:

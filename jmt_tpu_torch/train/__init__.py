@@ -1,1 +1,2 @@
-"""Step-level glue shared by serving and (later) training."""
+"""The train and eval steps, their state and optimizers, and the
+device preprocessing shared with serving."""

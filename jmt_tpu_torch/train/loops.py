@@ -1,21 +1,63 @@
-"""Device-side preprocessing shared by the eval forward and serving.
+"""The train and eval steps, and the device preprocessing they share.
 
-Counterpart of ``jmt_tpu/train/loops.py`` ``_preprocess`` (non-augmented
-branch): raw uint8 clips and raw audio in, backbone inputs out, in the
-model's compute dtype. The train and eval steps come with the training
-slice.
+Counterpart of ``jmt_tpu/train/loops.py``. One step takes raw uint8 clips,
+raw audio, wavLM features and labels, and runs the whole pipeline on the
+device: the colour augmentation (train step), the log-mel front end (one
+launch of kernel K1 for all B*S wavs on the card), the backbones over the
+flattened (B*S) clips, the fusion, the CCC loss of V plus that of A, the
+backward and the optimizer step. Parameters stay fp32; the model computes
+in its ``dtype`` (bf16 on the card).
+
+Usage::
+
+    state = init_state(model, cfg, torch.Generator().manual_seed(0))
+    train_step = make_train_step(model)
+    loss, v, a = train_step(state, arrays)      # arrays: device_batch(...)
+    eval_step = make_eval_step(model)
+    v, a = eval_step(state, arrays)             # (B, S) each
+
+The entry points run on the card; ``device="cpu"`` runs the plain PyTorch
+path on the CPU, and with no card present the default raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
-from jmt_tpu_torch.data.transforms import preprocess_clips
+from jmt_tpu_torch.data.transforms import (preprocess_clips,
+                                           sample_color_factors)
+from jmt_tpu_torch.device import resolve_device
+from jmt_tpu_torch.ops.ccc import ccc_loss
 from jmt_tpu_torch.ops.mel import log_mel
+from jmt_tpu_torch.train.optim import build_optimizer
+from jmt_tpu_torch.train.state import (TrainState, frozen_prefixes,
+                                       partition_params)
+
+Arrays = Dict[str, Any]
 
 
-def preprocess(model, arrays: Dict[str, torch.Tensor]
+def device_batch(batch) -> Arrays:
+    """A host batch (attributes clips, audio, labels_v, labels_a and
+    optionally wavlm) -> the arrays dict of the steps."""
+    out = {"clips": batch.clips,           # uint8 (B, S, 8, 112, 112, 3)
+           "audio": batch.audio,           # f32 (B, S, 45599)
+           "labels_v": batch.labels_v,     # f32 (B, S)
+           "labels_a": batch.labels_a}
+    if getattr(batch, "wavlm", None) is not None:
+        out["wavlm"] = batch.wavlm         # f32 (B, S, 768)
+    return out
+
+
+def _on(arrays: Arrays, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(x).to(device) for k, x in arrays.items()}
+
+
+def preprocess(model, arrays: Dict[str, torch.Tensor],
+               color_factors: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None,
+               more_vision_augm: bool = False, more_audio_augm: bool = False
                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """arrays: ``clips`` uint8 (B,S,8,H,W,3), ``audio`` f32 (B,S,L).
 
@@ -23,11 +65,134 @@ def preprocess(model, arrays: Dict[str, torch.Tensor]
     the model has the ResNet18 audio branch (one log-mel kernel launch for
     all B*S wavs on the card), and the normalized clips (B,S,8,H,W,3); each
     in the model's compute dtype, or None when the model does not use it.
+    ``color_factors``: the (B*S,) brightness and contrast factors of the
+    train step's colour augmentation (``sample_color_factors``); None for
+    the eval forward. The heavier augmentations (``more_vision_augm``,
+    ``more_audio_augm``) are not ported yet and raise.
     """
+    if more_vision_augm or more_audio_augm:
+        raise NotImplementedError(
+            "more_vision_augm / more_audio_augm are not ported yet")
     out_dtype = model.dtype or torch.float32
     clips = spec = None
     if len(model.vision_backbones) > 0:
-        clips = preprocess_clips(arrays["clips"]).to(out_dtype)
+        c = arrays["clips"]
+        if color_factors is None:
+            clips = preprocess_clips(c)
+        else:
+            flat = c.reshape(-1, *c.shape[2:])
+            clips = preprocess_clips(flat, *color_factors, augment=True
+                                     ).reshape(c.shape)
+        clips = clips.to(out_dtype)
     if "ResNet18" in model.audio_backbones:
         spec = log_mel(arrays["audio"], batch_dims=2).to(out_dtype)
     return spec, clips
+
+
+def _check_state(model, state: TrainState) -> None:
+    if state.model is not model:
+        raise ValueError("the step was made for another model than the "
+                         "state's")
+
+
+def make_train_step(model, more_vision_augm: bool = False,
+                    more_audio_augm: bool = False, device=None) -> Callable:
+    """Returns ``train_step(state, arrays, generator=None,
+    color_factors=None) -> (loss, vouts, aouts)``.
+
+    One SGD step in place on ``state``: colour-augmented preprocessing,
+    the forward in train mode (``JMTModel.train``: frozen backbones stay
+    in eval mode), ccc_loss(V) + ccc_loss(A) on the flattened (B*S)
+    outputs with ``arrays["row_weight"]`` (B,) masking padding rows,
+    backward, ``state.optimizer.step()``. The colour factors are drawn
+    from ``generator`` (torch's default one when None) unless given.
+    The three phases run inside ``torch.profiler`` ranges
+    ``train_step.forward`` / ``.backward`` / ``.optimizer`` (a profile
+    attributes the device time of the forward and optimizer kernels to
+    them; the backward's run on autograd's own thread).
+    """
+    dev = resolve_device(device)
+    model.to(dev)
+
+    def train_step(state: TrainState, arrays: Arrays,
+                   generator: Optional[torch.Generator] = None,
+                   color_factors=None):
+        _check_state(model, state)
+        x = _on(arrays, dev)
+        b, s = x["labels_v"].shape[:2]
+        if color_factors is None and len(model.vision_backbones) > 0:
+            color_factors = sample_color_factors(generator, b * s,
+                                                 device=dev)
+        model.train()
+        with record_function("train_step.forward"):
+            spec, clips = preprocess(model, x, color_factors,
+                                     more_vision_augm, more_audio_augm)
+            vouts, aouts = model(spec, clips, x.get("wavlm"))
+            rw = x.get("row_weight")
+            w = None if rw is None else \
+                rw[:, None].to(vouts.dtype).expand(vouts.shape).reshape(-1)
+            loss = (ccc_loss(vouts.reshape(-1), x["labels_v"].reshape(-1),
+                             weight=w)
+                    + ccc_loss(aouts.reshape(-1), x["labels_a"].reshape(-1),
+                               weight=w))
+        state.optimizer.zero_grad(set_to_none=True)
+        with record_function("train_step.backward"):
+            loss.backward()
+        with record_function("train_step.optimizer"):
+            state.optimizer.step()
+        return loss.detach(), vouts.detach(), aouts.detach()
+
+    return train_step
+
+
+def eval_forward(model, arrays: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eval forward of arrays already on the model's device: eval mode
+    (running-statistics BN, no dropout), no augmentation,
+    ``torch.inference_mode``. The eval step's and the server's."""
+    if model.training:  # a train step left it in train mode
+        model.eval()
+    with torch.inference_mode():
+        spec, clips = preprocess(model, arrays)
+        return model(spec, clips, arrays.get("wavlm"))
+
+
+def make_eval_step(model, device=None) -> Callable:
+    """Returns ``eval_step(state, arrays) -> (vouts, aouts)``, each (B, S):
+    ``eval_forward`` on the arrays moved to the device."""
+    dev = resolve_device(device)
+    model.to(dev)
+
+    def eval_step(state: TrainState, arrays: Arrays):
+        _check_state(model, state)
+        return eval_forward(model, _on(arrays, dev))
+
+    return eval_step
+
+
+def init_state(model, cfg, generator: Optional[torch.Generator] = None,
+               variables_hook: Optional[Callable] = None,
+               device=None) -> TrainState:
+    """Initialize the weights from ``generator`` (``init_parameters``, on
+    the CPU, so every device starts from the same weights), run
+    ``variables_hook(model)`` (the point to load pretrained weights),
+    move the model to the device, freeze the backbones that
+    ``cfg.model_params`` freezes and build its optimizer over the
+    trainable parameters."""
+    from jmt_tpu_torch.models.common import init_parameters
+    dev = resolve_device(device)
+    want = cfg.model_params.finetune()
+    if set(getattr(model, "finetune", want)) != set(want):
+        raise ValueError(f"the model finetunes {model.finetune}, the "
+                         f"config's freeze flags say {want}")
+    if generator is not None:
+        init_parameters(model, generator)
+    if variables_hook is not None:
+        variables_hook(model)
+    model.to(dev)
+    trainable, frozen = partition_params(model, frozen_prefixes(cfg))
+    params = dict(model.named_parameters())
+    optimizer = build_optimizer(cfg.model_params.opt,
+                                [params[n] for n in trainable])
+    return TrainState(model=model, optimizer=optimizer, trainable=trainable,
+                      frozen=frozen, epoch=0)

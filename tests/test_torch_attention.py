@@ -4,7 +4,8 @@ The plain version is held to JAX ``_core_xla`` and to the JAX Pallas
 ``fused_attention`` in interpret mode at the serving path's shapes (BH
 scaled down) and at a head_dim <= 256 shape, atol 2e-5 (the JAX package's
 kernel tolerance); the autograd backward to ``jax.vjp`` of ``_core_xla`` at
-atol 1e-5. The CUDA kernel's own tests, which need no JAX, are in
+atol 1e-5, and ``attention_core_bwd`` alone in f32 (atol 1e-6) and bf16
+(1e-2 of max |grad|). The CUDA kernel's own tests, which need no JAX, are in
 ``test_torch_kernels.py``.
 """
 import numpy as np
@@ -80,6 +81,49 @@ def test_attention_core_backward_matches_jax_vjp(shape):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 16, 1, 512), (3, 5, 2, 8)])
+def test_attention_core_bwd_matches_jax_vjp(shape, dtype):
+    """``attention_core_bwd`` against ``jax.vjp`` of ``_core_xla`` in the
+    same dtype: f32 atol 1e-6 (the gradients stay below 1.5), bf16 within
+    1e-2 of max |grad|; (B, L, H, hd) inputs folded to (BH, L, hd)."""
+    rng = np.random.default_rng(3)
+    q, k, v, g = (rng.normal(size=shape).astype(np.float32)
+                  for _ in range(4))
+    q *= np.float32(shape[-1] ** -0.5)
+    g *= np.float32(0.5 * shape[-1] ** -0.5)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(_core_xla, *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    want = [np.asarray(x, np.float32) for x in vjp(jnp.asarray(g, jdt))]
+    b, length, h, hd = shape
+
+    def bh(x):
+        return torch.from_numpy(x).to(tdt).transpose(1, 2).reshape(
+            b * h, length, hd)
+
+    got = attention.attention_core_bwd(bh(q), bh(k), bh(v), bh(g))
+    for a, w in zip(got, want):
+        assert a.dtype == tdt
+        a = a.float().reshape(b, h, length, hd).transpose(1, 2).numpy()
+        atol = 1e-6 if dtype == "float32" else 1e-2 * np.abs(w).max()
+        assert np.abs(w).max() < 1.5
+        np.testing.assert_allclose(a, w, rtol=0, atol=atol)
+
+
+def test_attention_core_backward_runs_attention_core_bwd(monkeypatch):
+    """The autograd backward is ``attention_core_bwd``; the plain version
+    is not on the path (the module does not even import it)."""
+    assert not hasattr(attention, "attention_plain")
+    calls = []
+    monkeypatch.setattr(attention, "attention_core_bwd",
+                        lambda *a: calls.append(len(a)) or tuple(
+                            torch.zeros_like(x) for x in a[:3]))
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(2, 4, 4, 8, seed=4))
+    attention._AttentionCore.apply(q, k, v).sum().backward()
+    assert calls == [4] and float(q.grad.abs().sum()) == 0.0
 
 
 def test_plain_casts_probabilities_to_v_dtype():

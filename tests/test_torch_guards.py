@@ -14,6 +14,12 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "jmt_tpu_torch"
 
 
+# the train and eval slice's modules, which the walk must reach
+TRAIN_SLICE_MODULES = tuple(f"jmt_tpu_torch.{m}" for m in (
+    "ops.ccc", "ops.smoothing", "core.config", "train.optim", "train.state",
+    "train.loops", "eval.stitch"))
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -22,8 +28,10 @@ def test_importing_every_port_module_loads_no_jax():
         "jmt_tpu_torch.__path__, 'jmt_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in ('jax', 'jmt_tpu') if m in sys.modules]\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 18 else 0)\n")
+        "missing = [m for m in %r if m not in names]\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 18 else 0)\n"
+        % (TRAIN_SLICE_MODULES,))
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)

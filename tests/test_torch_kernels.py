@@ -372,8 +372,9 @@ def test_attention_kernel_matches_plain_on_card(shape, dtype, atol,
 
 @pytest.mark.cuda
 def test_attention_core_backward_on_card(cuda_device):
-    """Kernel forward, plain backward: the gradients on the card agree with
-    the CPU's at atol 1e-5 (f32; matmul TF32 is off by default)."""
+    """Kernel forward, ``attention_core_bwd`` backward: the gradients on
+    the card agree with the CPU's at atol 1e-5 (f32; matmul TF32 is off by
+    default)."""
     rng = np.random.default_rng(5)
     q, k, v, g = (rng.normal(size=(2, 6, 1, 512)).astype(np.float32)
                   for _ in range(4))
