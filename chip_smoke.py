@@ -66,8 +66,31 @@ failure raises and the script exits non-zero:
    f32 from the same weights, loss within 1e-4 and updates within 1e-3
    of the step's largest; then ``eval/stitch.validate`` over the ordered
    windows of two synthetic videos (481 and 530 frames) on the trained
-   weights, card f32 against CPU f32 at 32 px, stitched CCC within 1e-3,
-   and the trained bf16 model at 112 px.
+   weights, card f32 against CPU f32 at 32 px over the first video,
+   stitched CCC within 1e-3, and the trained bf16 model at 112 px over
+   both;
+10. cli_train: the trainer entry point, ``jmt_tpu_torch.cli.main`` in
+   this process, on the flagship (``--config config.json --synthetic
+   2:530`` with the reference's flags for R2D1+I3D, ResNet18+wavLM,
+   encoder_plus_self_attention, SELF_ATTEN, the inception kernel on),
+   batch 8, two epochs into ``build/chip_exps``: 1 K1, 12 K2, 9 K3 a
+   train step and a validation forward (asserted), the experiment
+   directory's files, each epoch's seconds, step p50, loader-wait share,
+   host-to-device copy time, validate seconds and peak memory; the same
+   command again is a no-op (``passed.txt``);
+11. cli_resume: the same command with ``--preempt_save_steps 3``,
+   preempted in epoch 0, exits with ``preempted.txt`` and no
+   ``passed.txt``; the same command again resumes and ends where
+   cli_train ended (the largest |delta| of the final weights, printed and
+   held to 1e-3);
+12. cli_eval: ``--mode Eval`` on cli_train's directory: the components
+   give the best epoch's valid CCC, the state the last epoch's (within
+   1e-3); ``--eval-split test`` writes a ``{vid}.txt`` per video;
+13. cli_default_config: config.json's own model (R2D1 + ResNet18, FC
+   head, bf16) for one epoch (1 K1, 6 K2 a forward, asserted); one eval
+   forward each of NoJR (4 K2) and FeatureConcatFC (no K2), card f32
+   against CPU f32 within 1e-3; NoJR over 129 rows raises at K2's
+   wrapper.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 kernels summary JSON, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -83,6 +106,12 @@ for the jmt_tpu_torch of each TREE in turn, each in a fresh process
 (``--mel-times`` / ``--k4-times`` run from that tree), on one card in one
 call: a parent tree unpacked with ``git archive`` into the ignored
 ``build/ab/``.
+
+    python3 chip_smoke.py --determinism
+
+repeats the flagship's eval forward, and each of its K3 and K2 launches,
+on the same weights and inputs, and prints how far each output moves
+(``determinism``).
 """
 from __future__ import annotations
 
@@ -911,6 +940,7 @@ def train_config(model_config, **opt):
     return Config(model_params=ModelParams(
         l_vision_backbones=list(model_config["vision_backbones"]),
         l_audio_backbones=list(model_config["audio_backbones"]),
+        intra_modal_fusion=model_config["intra_modal_fusion"],
         opt=OptimParams(**opt)))
 
 
@@ -1141,12 +1171,12 @@ def phase_train_card_vs_cpu() -> None:
 
 
 def stitch_batches(seed: int, img: int, b: int = TRAIN_B,
-                   seq: int = TRAIN_S):
-    """The ordered windows of the two synthetic videos, b windows a batch
+                   seq: int = TRAIN_S, videos=STITCH_VIDEOS):
+    """The ordered windows of the synthetic videos, b windows a batch
     (the last padded, ``n_real`` set), each made from ``seed`` when it is
     asked for: labels follow slow sines with noise and a few -5 slots."""
     from types import SimpleNamespace
-    rows = [(vid, length, w) for vid, length in STITCH_VIDEOS
+    rows = [(vid, length, w) for vid, length in videos
             for w in range(-(-length // seq))]
     for i in range(0, len(rows), b):
         part = rows[i:i + b]
@@ -1170,8 +1200,9 @@ def stitch_batches(seed: int, img: int, b: int = TRAIN_B,
 def phase_stitched_eval(trained) -> None:
     """``validate`` (make_eval_step over the ordered windows, Stitcher,
     scores) on the trained state's weights: card f32 against CPU f32 at 32
-    px clips (the I3D stem fold at 64), CCC V and A within 1e-3; then the
-    trained bf16 flagship itself at 112 px on the card, timed."""
+    px clips (the I3D stem fold at 64) over the first video's 31 windows,
+    CCC V and A within 1e-3; then the trained bf16 flagship itself at 112
+    px on the card over both videos' 65, timed."""
     from jmt_tpu_torch.eval import stitch
     from jmt_tpu_torch.train import loops
     sd = trained.model.state_dict()
@@ -1185,8 +1216,9 @@ def phase_stitched_eval(trained) -> None:
             state = loops.init_state(model, train_config(cfg), device=dev)
             step = loops.make_eval_step(model, device=dev)
             t0 = time.perf_counter()
-            scores[name] = stitch.validate(step, state,
-                                           stitch_batches(3, img=32))
+            scores[name] = stitch.validate(
+                step, state, stitch_batches(3, img=32,
+                                            videos=STITCH_VIDEOS[:1]))
             emit({"phase": "stitched_eval", "run": name, "img": 32,
                   "ccc_v": scores[name][0], "ccc_a": scores[name][1],
                   "seconds": time.perf_counter() - t0})
@@ -1209,6 +1241,274 @@ def phase_stitched_eval(trained) -> None:
     if launches != expected or not np.isfinite([ccc_v, ccc_a]).all():
         raise AssertionError(f"stitched eval bf16: launches {launches} "
                              f"(expected {expected}), CCC {ccc_v}, {ccc_a}")
+
+
+# ---------------------------------------------------------------------------
+# the trainer entry point: ``python -m jmt_tpu_torch.cli``, in-process
+# ---------------------------------------------------------------------------
+CLI_SYNTHETIC = "2:530"
+CLI_EXPS = "build/chip_exps"
+FLAGSHIP_FLAGS = ("--l_vision_backbones", "R2D1+I3D",
+                  "--l_audio_backbones", "ResNet18+wavLM",
+                  "--intra_modal_fusion", "encoder_plus_self_attention",
+                  "--output_format", "SELF_ATTEN",
+                  "--i3d_fused_inception", "True")
+# the SavedWeights components of the flagship
+FLAGSHIP_COMPONENTS = ("all_backbones", "audio_resnet18", "vision_r2d1",
+                       "vision_i3d", "fusion_w",
+                       "transformer_audio_modality_fusion",
+                       "transformer_visio_modality_fusion")
+# the K2 launches of one forward of config.json's model (FC head, no
+# intra-modal fusion: 3 encoders, 3 paired cross-attentions) and of NoJR
+DEFAULT_PER_FORWARD = dict(_NONE, log_mel=1, fused_attention=6)
+NOJR_PER_FORWARD = dict(_NONE, log_mel=1, fused_attention=4)
+FC_PER_FORWARD = dict(_NONE, log_mel=1)
+
+
+def cli_argv(outd: str, *flags: str, epochs: int = 2) -> list:
+    """``--config config.json --synthetic 2:530`` with ``flags``, batch 8
+    for every split, ``epochs`` epochs, into ``outd``."""
+    return ["--config", "config.json", "--synthetic", CLI_SYNTHETIC, *flags,
+            "--train_params__batch_size", "8",
+            "--val_params__batch_size", "8",
+            "--test_params__batch_size", "8", "--max_epochs", str(epochs),
+            "--verbose", "False", "--outd", outd]
+
+
+def run_cli(argv: list) -> tuple:
+    """``jmt_tpu_torch.cli.main(argv)`` with the launch counts set to 0
+    before it; returns (its last JSON line, the launches, seconds)."""
+    import io
+    from jmt_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, launches = counted(lambda: cli.main(argv))
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main({argv}) returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), launches, \
+        seconds
+
+
+def cli_forwards(epochs: int, split: str = "") -> int:
+    """Forwards at batch 8 over the synthetic source: of ``epochs`` epochs
+    (train steps plus validation forwards), or of one pass over
+    ``split``."""
+    from jmt_tpu_torch.data.synthetic import synthetic_dataset
+    n, length = map(int, CLI_SYNTHETIC.split(":")[:2])
+
+    def batches(name):
+        return -(-len(synthetic_dataset(name, n, length,
+                                        check_coverage=False)) // 8)
+
+    return batches(split) if split else \
+        epochs * (batches("train") + batches("val"))
+
+
+def expect_launches(what: str, launches: dict, per_forward: dict,
+                    forwards: int) -> None:
+    want = {k: v * forwards for k, v in per_forward.items()}
+    if launches != want:
+        raise AssertionError(f"{what}: expected launches {want} "
+                             f"({forwards} forwards), got {launches}")
+
+
+def epoch_records(exp: str) -> list:
+    """The per-epoch metrics records of the experiment's log.json."""
+    out = []
+    with open(os.path.join(exp, "log.json")) as f:
+        for line in f:
+            data = json.loads(line[len("DLLL "):]).get("data")
+            if isinstance(data, dict) and "epoch_seconds" in data:
+                out.append(data)
+    return out
+
+
+def fresh(outd: str) -> str:
+    import shutil
+    shutil.rmtree(outd, ignore_errors=True)
+    return os.path.join(outd, "id_exp")
+
+
+def final_weights(exp: str) -> dict:
+    return torch.load(os.path.join(exp, "SavedWeights", "train_state.pt"),
+                      map_location="cpu", weights_only=True)["model"]
+
+
+def phase_cli_train() -> str:
+    """The flagship through the CLI for two epochs: launches (1 K1, 12
+    K2, 9 K3 per step and per validation forward), the experiment files,
+    each epoch's timings; then the same command again, a no-op."""
+    exp = fresh(CLI_EXPS)
+    argv = cli_argv(CLI_EXPS, *FLAGSHIP_FLAGS)
+    out, launches, seconds = run_cli(argv)
+    forwards = cli_forwards(2)
+    emit({"phase": "cli_train", "seconds": seconds, "forwards": forwards,
+          **out, **launches})
+    for rec in epoch_records(exp):
+        emit({"phase": "cli_train_epoch", **rec})
+    expect_launches("cli_train", launches, PER_FORWARD["flagship"], forwards)
+    missing = [p for p in ([os.path.join("SavedWeights", f"{n}.pt")
+                            for n in FLAGSHIP_COMPONENTS + ("train_state",)]
+                           + ["final_config.yml", "perfs.yml", "passed.txt"])
+               if not os.path.isfile(os.path.join(exp, p))]
+    if missing or len(epoch_records(exp)) != 2:
+        raise AssertionError(f"cli_train: missing {missing}")
+    state = os.path.join(exp, "SavedWeights", "train_state.pt")
+    mtime = os.stat(state).st_mtime_ns
+    again, launches, seconds = run_cli(argv)
+    emit({"phase": "cli_train_again", "seconds": seconds, **again,
+          **launches})
+    if again != {"best": {}} or any(launches.values()) \
+            or os.stat(state).st_mtime_ns != mtime:
+        raise AssertionError(f"cli_train again: {again}, {launches}")
+    return exp
+
+
+def phase_cli_resume(trained: str) -> None:
+    """The same command with ``--preempt_save_steps 3``, preempted in its
+    second step of epoch 0: it saves at step 3 and exits without
+    passed.txt; the same command again resumes there and ends where
+    ``cli_train`` ended (the largest |delta| of the final weights)."""
+    from jmt_tpu_torch.core import preempt
+    from jmt_tpu_torch.train import runner as runner_mod
+    outd = CLI_EXPS + "_resume"
+    exp = fresh(outd)
+    argv = cli_argv(outd, *FLAGSHIP_FLAGS, "--preempt_save_steps", "3")
+    make_step = runner_mod.make_train_step
+
+    def preempting(model, **kw):
+        step, calls = make_step(model, **kw), []
+
+        def call(*args, **kwargs):
+            out = step(*args, **kwargs)
+            calls.append(1)
+            if len(calls) == 2:
+                preempt.request()
+            return out
+        return call
+
+    runner_mod.make_train_step = preempting
+    try:
+        out, launches, seconds = run_cli(argv)
+    finally:
+        runner_mod.make_train_step = make_step
+        preempt.clear()
+    cut = {f: os.path.isfile(os.path.join(exp, f))
+           for f in ("preempted.txt", "passed.txt")}
+    emit({"phase": "cli_resume_preempted", "seconds": seconds, **out,
+          **cut, **launches})
+    if cut != {"preempted.txt": True, "passed.txt": False}:
+        raise AssertionError(f"cli_resume: the preempted run left {cut}")
+    expect_launches("cli_resume preempted", launches,
+                    PER_FORWARD["flagship"], 3)
+    out, launches, seconds = run_cli(argv)
+    got, want = final_weights(exp), final_weights(trained)
+    delta = max(float((got[k].double() - want[k].double()).abs().max())
+                for k in want if want[k].is_floating_point())
+    emit({"phase": "cli_resume", "seconds": seconds,
+          "final_weights_max_abs_delta_vs_cli_train": delta,
+          "passed": os.path.isfile(os.path.join(exp, "passed.txt")),
+          **out, **launches})
+    if not (delta <= 1e-3 and os.path.isfile(os.path.join(exp,
+                                                          "passed.txt"))):
+        raise AssertionError(f"cli_resume: final weights {delta} from "
+                             f"cli_train's")
+
+
+def phase_cli_eval(exp: str) -> None:
+    """Eval mode on ``cli_train``'s directory: the components reproduce
+    the best epoch's valid CCC, the state the last epoch's (within 1e-3,
+    the stitched-eval bound); the test split writes a ``{vid}.txt`` per
+    video."""
+    with open(os.path.join(exp, "perfs.yml")) as f:
+        perfs = json.load(f)
+    want = {"components": (perfs["best"]["valid_v"],
+                           perfs["best"]["valid_a"]),
+            "state": (perfs["tracker"]["valid_v"][-1],
+                      perfs["tracker"]["valid_a"][-1])}
+    forwards = cli_forwards(0, "val")
+    common = ["--mode", "Eval", "--exp-dir", exp, "--synthetic",
+              CLI_SYNTHETIC]
+    for weights, (v, a) in want.items():
+        out, launches, seconds = run_cli(common + ["--eval-weights",
+                                                   weights])
+        delta = max(abs(out["valid_ccc_v"] - v), abs(out["valid_ccc_a"] - a))
+        emit({"phase": "cli_eval", "weights": weights, "seconds": seconds,
+              **out, "want_v": v, "want_a": a, "max_abs_delta": delta,
+              **launches})
+        expect_launches(f"cli_eval {weights}", launches,
+                        PER_FORWARD["flagship"], forwards)
+        if not delta <= 1e-3:
+            raise AssertionError(f"cli_eval {weights}: {out} vs {(v, a)}")
+    out, launches, seconds = run_cli(common + ["--eval-split", "test"])
+    txts = sorted(os.listdir(out["test_predictions_dir"]))
+    lines = [len(open(os.path.join(out["test_predictions_dir"], t)
+                      ).read().splitlines()) for t in txts]
+    emit({"phase": "cli_eval", "split": "test", "seconds": seconds,
+          "files": txts, "lines": lines, **launches})
+    expect_launches("cli_eval test", launches, PER_FORWARD["flagship"],
+                    cli_forwards(0, "test"))
+    if txts != ["synth000.txt", "synth001.txt"] or lines != [531, 531]:
+        raise AssertionError(f"cli_eval test: {txts}, {lines}")
+
+
+def phase_cli_default_config() -> None:
+    """config.json's own model (R2D1 + ResNet18, FC head, bf16) through
+    the CLI for one epoch; then one eval forward each of the NoJR and the
+    FeatureConcatFC configurations, card f32 (TF32 off) against CPU f32,
+    and NoJR over 129 rows raising at K2's wrapper."""
+    from jmt_tpu_torch import cli
+    from jmt_tpu_torch.models.common import init_parameters
+    from jmt_tpu_torch.models.jmt_model import model_from_config
+    from jmt_tpu_torch.train.loops import eval_forward
+    outd = CLI_EXPS + "_default"
+    exp = fresh(outd)
+    out, launches, seconds = run_cli(cli_argv(outd, epochs=1))
+    emit({"phase": "cli_default_config", "seconds": seconds, **out,
+          **launches})
+    for rec in epoch_records(exp):
+        emit({"phase": "cli_default_config_epoch", **rec})
+    expect_launches("cli_default_config", launches, DEFAULT_PER_FORWARD,
+                    cli_forwards(1))
+    rng = np.random.default_rng(7)
+    clips, audio, _ = request(rng, 3, 4)
+    arrays = {"clips": torch.from_numpy(clips),
+              "audio": torch.from_numpy(audio)}
+    with full_fp32():
+        for joint, per_forward in (("NONE", NOJR_PER_FORWARD),
+                                   ("FC", FC_PER_FORWARD)):
+            cfg = cli.build_config(cli.parse_args(
+                ["--config", "config.json", "--joint_modalities", joint,
+                 "--compute_dtype", "float32"]))
+            card = init_parameters(model_from_config(cfg),
+                                   torch.Generator().manual_seed(3))
+            cpu = model_from_config(cfg)
+            cpu.load_state_dict(card.state_dict())
+            card.cuda()
+            got, launches = counted(lambda: eval_forward(
+                card, {k: x.cuda() for k, x in arrays.items()}))
+            want = eval_forward(cpu, arrays)
+            delta = va_max_abs(tuple(x.cpu().numpy() for x in got),
+                               tuple(x.numpy() for x in want))
+            emit({"phase": "cli_default_config_lattice", "joint": joint,
+                  "card_f32_vs_cpu_f32_max_abs": delta,
+                  "va_std_cpu": float(want[0].std()), **launches})
+            expect_launches(f"joint {joint}", launches, per_forward, 1)
+            if not delta <= 1e-3:
+                raise AssertionError(f"joint {joint}: card f32 vs CPU f32 "
+                                     f"V/A {delta}")
+            if joint == "NONE":
+                x = torch.randn(129, 2, 512, device="cuda")
+                try:
+                    with torch.inference_mode():
+                        card.fusion_model.mm_transformer(x, x)
+                except ValueError as e:
+                    emit({"phase": "cli_default_config_nojr_129_rows",
+                          "raised": str(e)[:120]})
+                else:
+                    raise AssertionError("NoJR over 129 rows did not raise")
 
 
 @contextlib.contextmanager
@@ -1290,6 +1590,85 @@ def tree_ab(trees, mode: str) -> None:
             emit({"phase": f"{mode}_ab", "tree": tree, **rec})
 
 
+def determinism(forwards: int = 20, kernel_calls: int = 30) -> None:
+    """``--determinism``: how far repeated runs on the same weights and
+    inputs move. The flagship's eval forward (bf16, flag on, B = 8,
+    S = 16) ``forwards`` times, each submodule's output caught by a hook
+    (the log-mel, each backbone, each intra-modal fusion, the JMT, V/A),
+    then each of its inception modules' K3 launches and its attention
+    problems' K2 launches repeated ``kernel_calls`` times on their
+    captured inputs: per output, how many runs differ from the first and
+    the largest |delta|."""
+    import jmt_tpu_torch  # noqa: F401  (fails outside the repository)
+    from jmt_tpu_torch.models import i3d
+    from jmt_tpu_torch.ops import attention
+    from jmt_tpu_torch.ops.kernels import fused_attention as fa
+    from jmt_tpu_torch.train.loops import preprocess
+    model = make_model(FLAGSHIP_CONFIG, torch.bfloat16,
+                       i3d_fused_inception=True).cuda().eval()
+    x = {k: torch.from_numpy(v).cuda() for k, v in zip(
+        ("clips", "audio", "wavlm"), request(np.random.default_rng(0), 8,
+                                             16))}
+    names = ("backbones.audio_resnet18", "backbones.vision_r2d1",
+             "backbones.vision_i3d", "transformer_visio_modality_fusion",
+             "transformer_audio_modality_fusion",
+             "fusion_model.mm_transformer")
+    caught, k3_inputs, k2_inputs = {}, [], []
+    mods = dict(model.named_modules())
+    for name in names:
+        mods[name].register_forward_hook(
+            lambda m, i, o, name=name: caught.__setitem__(
+                name, o.float().cpu()))
+    fused = i3d.inception_module_fused
+    core = attention.fused_attention
+
+    def k3(*args, **kw):
+        k3_inputs.append((args, kw))
+        return fused(*args, **kw)
+
+    def k2(q, k, v):
+        k2_inputs.append((q, k, v))
+        return core(q, k, v)
+
+    i3d.inception_module_fused, attention.fused_attention = k3, k2
+
+    def forward() -> dict:
+        caught.clear()
+        k3_inputs.clear()
+        k2_inputs.clear()
+        with torch.inference_mode():
+            spec, clips = preprocess(model, x)
+            v, a = model(spec, clips, x["wavlm"])
+        return dict(caught, spec=spec.float().cpu(), v=v.float().cpu(),
+                    a=a.float().cpu())
+
+    def tally(runs: list) -> dict:
+        return {k: {"differ": sum(not torch.equal(r[k], runs[0][k])
+                                  for r in runs[1:]),
+                    "max_abs": max(float((r[k] - runs[0][k]).abs().max())
+                                   for r in runs[1:])}
+                for k in runs[0]}
+
+    try:
+        runs = [forward() for _ in range(forwards)]
+        emit({"phase": "determinism", "what": "flagship eval forward",
+              "runs": forwards, **tally(runs)})
+        with torch.inference_mode():
+            for j, (args, kw) in enumerate(list(k3_inputs)):
+                outs = [{"out": fused(*args, **kw).float().cpu()}
+                        for _ in range(kernel_calls)]
+                emit({"phase": "determinism", "what": f"K3 launch {j}",
+                      "runs": kernel_calls, **tally(outs)["out"]})
+            for j, (q, k, v) in enumerate(list(k2_inputs)):
+                outs = [{"out": fa.fused_attention(q, k, v).float().cpu()}
+                        for _ in range(kernel_calls)]
+                emit({"phase": "determinism", "what": f"K2 launch {j}",
+                      "shape": list(q.shape), "runs": kernel_calls,
+                      **tally(outs)["out"]})
+    finally:
+        i3d.inception_module_fused, attention.fused_attention = fused, core
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1302,6 +1681,10 @@ def main() -> int:
         return 0
     if sys.argv[1:2] in (["--mel-ab"], ["--k4-ab"]):
         tree_ab(sys.argv[2:], sys.argv[1][2:-3])
+        return 0
+    if sys.argv[1:2] == ["--determinism"]:
+        print(nvidia_smi())
+        determinism()
         return 0
     import jmt_tpu_torch  # noqa: F401  (fails outside the repository)
 
@@ -1344,6 +1727,16 @@ def main() -> int:
         phase_train_card_vs_cpu()
     with phase("stitched_eval"):
         phase_stitched_eval(trained)
+    del trained
+    torch.cuda.empty_cache()
+    with phase("cli_train"):
+        exp = phase_cli_train()
+    with phase("cli_resume"):
+        phase_cli_resume(exp)
+    with phase("cli_eval"):
+        phase_cli_eval(exp)
+    with phase("cli_default_config"):
+        phase_cli_default_config()
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     kernels[2]["pool_in"] = dict(

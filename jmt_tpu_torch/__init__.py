@@ -6,7 +6,9 @@ the log-mel front end (``ops/kernels/melspec.py``) and the attention core
 (``ops/kernels/fused_attention.py``). The package imports torch only;
 ``jmt_tpu`` is its numerical reference and is used by the tests alone.
 
-Entry point: ``jmt_tpu_torch.serve.InferenceServer``.
+Entry points: the trainer, ``python -m jmt_tpu_torch.cli`` (config,
+windowed data, ``train/runner.Runner`` with checkpoints, resume and Eval
+mode), and the server, ``jmt_tpu_torch.serve.InferenceServer``.
 """
 from jmt_tpu_torch.device import resolve_device
 

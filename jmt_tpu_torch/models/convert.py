@@ -93,9 +93,10 @@ def inv_regressor(tree, prefix: str) -> SD:
 
 
 def inv_jmt_w_jr(tree, prefix: str = "") -> SD:
-    """JointMultimodalTransformer (SELF_ATTEN head) params."""
+    """JointMultimodalTransformer params, either head: ``out_layer1`` in
+    the tree is the FC head, ``final_encoder`` the SELF_ATTEN one."""
     p = prefix
-    return _merge(
+    out = _merge(
         inv_encoder_block(tree["visual_encoder"], _key(p, "visual_encoder")),
         inv_encoder_block(tree["audio_encoder"],
                           _key(p, "physiological_encoder")),
@@ -104,17 +105,52 @@ def inv_jmt_w_jr(tree, prefix: str = "") -> SD:
         inv_mha(tree["cross_attention_v"], _key(p, "cross_attention_v")),
         inv_mha(tree["cross_attention_p"], _key(p, "cross_attention_p")),
         inv_mha(tree["cross_attention_pv"], _key(p, "cross_attention_pv")),
-        inv_linear(tree["out_layer_pv"], _key(p, "out_layer_pv")),
-        inv_encoder_block(tree["final_encoder"],
-                          _key(p, "final_visual_encoder")),
-        inv_mha(tree["final_self_attention"],
-                _key(p, "final_self_attention")))
+        inv_linear(tree["out_layer_pv"], _key(p, "out_layer_pv")))
+    if "out_layer1" in tree:
+        out.update(inv_linear(tree["out_layer1"], _key(p, "out_layer1")))
+    else:
+        out.update(inv_encoder_block(tree["final_encoder"],
+                                     _key(p, "final_visual_encoder")))
+        out.update(inv_mha(tree["final_self_attention"],
+                           _key(p, "final_self_attention")))
+    return out
+
+
+def inv_jmt_wo_jr(tree, prefix: str = "") -> SD:
+    """MultimodalTransformerNoJR params."""
+    p = prefix
+    return _merge(
+        inv_encoder_block(tree["visual_encoder"], _key(p, "visual_encoder")),
+        inv_encoder_block(tree["audio_encoder"],
+                          _key(p, "physiological_encoder")),
+        inv_mha(tree["cross_attention_v"], _key(p, "cross_attention_v")),
+        inv_mha(tree["cross_attention_p"], _key(p, "cross_attention_p")),
+        inv_linear(tree["final_layer"], _key(p, "final_layer")))
+
+
+def inv_feature_concat_fc(tree, prefix: str = "") -> SD:
+    return inv_linear(tree["fc"], _key(prefix, "fc"))
+
+
+def inv_mm_transformer(tree, prefix: str = "") -> SD:
+    """The fusion variant from the tree: ``joint_encoder`` => w_JR,
+    ``final_layer`` => wo_JR, a bare ``fc`` => FeatureConcatFC."""
+    if "joint_encoder" in tree:
+        return inv_jmt_w_jr(tree, prefix)
+    if "final_layer" in tree:
+        return inv_jmt_wo_jr(tree, prefix)
+    return inv_feature_concat_fc(tree, prefix)
 
 
 def inv_two_transformers(tree) -> SD:
-    return _merge(inv_jmt_w_jr(tree["mm_transformer"], "mm_transformer"),
+    return _merge(inv_mm_transformer(tree["mm_transformer"],
+                                     "mm_transformer"),
                   inv_regressor(tree["vregressor"], "vregressor"),
                   inv_regressor(tree["aregressor"], "aregressor"))
+
+
+def inv_pretrainer(tree) -> SD:
+    return inv_regressor(tree["regressor"], "regressor")
 
 
 def inv_intra_modal_fusion(tree) -> SD:
@@ -338,8 +374,12 @@ def inv_jmt_model(tree) -> SD:
     for name in ("fc_layer_for_video_concat", "fc_layer_for_audio_concat"):
         if name in params:
             sd.update(_prefixed(name, inv_fc_layer(params[name])))
-    sd.update(_prefixed("fusion_model",
-                        inv_two_transformers(params["fusion_model"])))
+    if "fusion_model" in params:
+        sd.update(_prefixed("fusion_model",
+                            inv_two_transformers(params["fusion_model"])))
+    else:
+        sd.update(_prefixed("backbone_pretrainer",
+                            inv_pretrainer(params["backbone_pretrainer"])))
     return sd
 
 
@@ -358,8 +398,11 @@ def _converters():
         resnet18.ResNet18: inv_resnet18,
         video_resnet.VideoResNet: inv_video_resnet,
         fusion.TwoTransformers: lambda t: inv_two_transformers(t["params"]),
+        fusion.SingleBackbonePretrainer: lambda t: inv_pretrainer(t["params"]),
         jmt.JointMultimodalTransformer:
             lambda t: inv_jmt_w_jr(t["params"]),
+        jmt.MultimodalTransformerNoJR: lambda t: inv_jmt_wo_jr(t["params"]),
+        jmt.FeatureConcatFC: lambda t: inv_feature_concat_fc(t["params"]),
         intra_modal.IntraModalTransformerFusion:
             lambda t: inv_intra_modal_fusion(t["params"]),
         intra_modal.FcLayer: lambda t: inv_fc_layer(t["params"]),
@@ -367,6 +410,89 @@ def _converters():
             lambda t: inv_encoder_block(t["params"], ""),
         MultiheadAttention: lambda t: inv_mha(t["params"], ""),
     }
+
+
+# ---------------------------------------------------------------------------
+# the reference modules' forward-dead keys, for reference-layout exports
+# ---------------------------------------------------------------------------
+def _dead_encoder_layer(dim: int, hidden: int, prefix: str) -> SD:
+    z = np.zeros
+    return {
+        f"{prefix}.attention.in_proj_weight": z((3 * dim, dim), np.float32),
+        f"{prefix}.attention.in_proj_bias": z((3 * dim,), np.float32),
+        f"{prefix}.attention.out_proj.weight": z((dim, dim), np.float32),
+        f"{prefix}.attention.out_proj.bias": z((dim,), np.float32),
+        f"{prefix}.feed_forward.0.weight": z((hidden, dim), np.float32),
+        f"{prefix}.feed_forward.0.bias": z((hidden,), np.float32),
+        f"{prefix}.feed_forward.2.weight": z((dim, hidden), np.float32),
+        f"{prefix}.feed_forward.2.bias": z((dim,), np.float32),
+        f"{prefix}.layer_norm1.weight": np.ones((dim,), np.float32),
+        f"{prefix}.layer_norm1.bias": z((dim,), np.float32),
+        f"{prefix}.layer_norm2.weight": np.ones((dim,), np.float32),
+        f"{prefix}.layer_norm2.bias": z((dim,), np.float32),
+    }
+
+
+def _dead_i3d_heads(prefix: str = "") -> SD:
+    """I3D_WSDDA's heads that the feature path never runs: the
+    InceptionI3d ``logits`` Unit3D, ``predictions`` and the
+    ``vregressor``/``aregressor`` with their BN."""
+    z = np.zeros
+    out: SD = {
+        f"{prefix}i3d_WSDDA.logits.conv3d.weight":
+            z((400, 1024, 1, 1, 1), np.float32),
+        f"{prefix}i3d_WSDDA.logits.conv3d.bias": z((400,), np.float32),
+        f"{prefix}predictions.0.conv3d.weight":
+            z((512, 1024, 1, 1, 1), np.float32),
+        f"{prefix}predictions.0.conv3d.bias": z((512,), np.float32),
+        f"{prefix}predictions.1.conv3d.weight":
+            z((1, 512, 1, 1, 1), np.float32),
+        f"{prefix}predictions.1.conv3d.bias": z((1,), np.float32),
+    }
+    for reg in ("vregressor", "aregressor"):
+        out.update({
+            f"{prefix}{reg}.0.weight": z((128, 512), np.float32),
+            f"{prefix}{reg}.0.bias": z((128,), np.float32),
+            f"{prefix}{reg}.1.weight": np.ones((128,), np.float32),
+            f"{prefix}{reg}.1.bias": z((128,), np.float32),
+            f"{prefix}{reg}.1.running_mean": z((128,), np.float32),
+            f"{prefix}{reg}.1.running_var": np.ones((128,), np.float32),
+            f"{prefix}{reg}.1.num_batches_tracked": np.zeros((), np.int64),
+            f"{prefix}{reg}.2.weight": z((1, 128), np.float32),
+            f"{prefix}{reg}.2.bias": z((1,), np.float32),
+        })
+    return out
+
+
+def synthesize_dead_keys(name: str, sd: SD) -> SD:
+    """Add to the state dict of SavedWeights component ``name`` the keys
+    of the reference submodules that never run (zeros, identity norms), so
+    the file strict-loads into the reference module: w_JR's
+    ``mm_transformer.final_encoder`` (3072-d, one layer per live encoder
+    layer), I3D_WSDDA's heads, R(2+1)D's 17-way ``fc``. The JAX package's
+    ``export_reference_pt`` writes the same keys."""
+    out = dict(sd)
+    fe = "mm_transformer.final_encoder."
+    vis = "mm_transformer.visual_encoder.layers."
+    if any(k.startswith("mm_transformer.joint_representation_encoder.")
+           for k in sd) and not any(k.startswith(fe) for k in sd):
+        n_layers = 1 + max(int(k[len(vis):].split(".")[0])
+                           for k in sd if k.startswith(vis))
+        hidden = sd[f"{vis}0.feed_forward.0.weight"].shape[0]
+        for i in range(n_layers):
+            out.update(_dead_encoder_layer(3072, hidden, f"{fe}layers.{i}"))
+    if name == "vision_i3d":
+        out.update(_dead_i3d_heads())
+    if name == "all_backbones" and any(k.startswith("vision_i3d.")
+                                       for k in sd):
+        out.update(_dead_i3d_heads(prefix="vision_i3d."))
+    for pfx in ("", "vision_r2d1."):
+        if name in ("vision_r2d1", "all_backbones") and any(
+                k.startswith(f"{pfx}r2plus1d.stem") for k in sd):
+            out[f"{pfx}r2plus1d.fc.1.weight"] = np.zeros((17, 512),
+                                                         np.float32)
+            out[f"{pfx}r2plus1d.fc.1.bias"] = np.zeros((17,), np.float32)
+    return out
 
 
 def state_dict_from_jax(module: torch.nn.Module, variables) -> SD:

@@ -186,7 +186,7 @@ def init_state(model, cfg, generator: Optional[torch.Generator] = None,
         raise ValueError(f"the model finetunes {model.finetune}, the "
                          f"config's freeze flags say {want}")
     if generator is not None:
-        init_parameters(model, generator)
+        init_parameters(model.cpu(), generator)
     if variables_hook is not None:
         variables_hook(model)
     model.to(dev)

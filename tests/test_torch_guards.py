@@ -1,7 +1,9 @@
 """The port stands alone: no JAX and nothing of ``jmt_tpu`` at run time.
 
-Also: ``chip_smoke.py`` refuses to run without a card or outside the
-repository, printing no result.
+Also: every port module imports, and the CLI trains a tiny epoch on the
+CPU, with the packages the card's machine lacks blocked; ``chip_smoke.py``
+refuses to run without a card or outside the repository, printing no
+result.
 """
 import os
 import re
@@ -14,10 +16,16 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "jmt_tpu_torch"
 
 
-# the train and eval slice's modules, which the walk must reach
+# the train and eval slice's modules and the trainer entry point's, which
+# the walk must reach
 TRAIN_SLICE_MODULES = tuple(f"jmt_tpu_torch.{m}" for m in (
     "ops.ccc", "ops.smoothing", "core.config", "train.optim", "train.state",
-    "train.loops", "eval.stitch"))
+    "train.loops", "eval.stitch", "core.logging", "core.rng",
+    "core.preempt", "core.checkpoint", "data.windowing", "data.audio_io",
+    "data.datasets", "data.synthetic", "data.loader", "train.runner",
+    "cli"))
+# what the card's machine does not install
+ABSENT_THERE = ("yaml", "pandas", "PIL", "flax", "msgpack", "matplotlib")
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -65,3 +73,32 @@ def test_chip_smoke_fails_alone_and_without_a_card(tmp_path):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_port_runs_without_the_packages_the_card_machine_lacks(tmp_path):
+    """Every module imports and ``cli.main`` trains one tiny CPU epoch and
+    evaluates it with yaml, pandas, PIL, flax, msgpack and matplotlib
+    blocked (``sys.modules[name] = None``)."""
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "for name in %r: sys.modules[name] = None\n"
+        "import jmt_tpu_torch\n"
+        "for m in pkgutil.walk_packages(jmt_tpu_torch.__path__, "
+        "'jmt_tpu_torch.'): importlib.import_module(m.name)\n"
+        "from jmt_tpu_torch import cli\n"
+        "common = ['--synthetic', '1:481:16', '--device', 'cpu']\n"
+        "assert cli.main(['--config', 'config.json', '--l_audio_backbones',"
+        " 'wavLM', '--joint_modalities', 'FC', '--compute_dtype', 'float32',"
+        " '--train_params__batch_size', '2', '--val_params__batch_size', "
+        "'2', '--train_params__stride', '480', '--max_epochs', '1', "
+        "'--verbose', 'False', '--outd', %r] + common) == 0\n"
+        "assert cli.main(['--mode', 'Eval', '--exp-dir', %r] + common) == 0\n"
+        "bad = [m for m in ('jax', 'jmt_tpu') if m in sys.modules]\n"
+        "sys.exit(1 if bad else 0)\n"
+        % (ABSENT_THERE, str(tmp_path), str(tmp_path / "id_exp")))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert (tmp_path / "id_exp" / "passed.txt").is_file()
+    assert '"valid_ccc_v"' in proc.stdout

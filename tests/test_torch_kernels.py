@@ -409,6 +409,26 @@ def test_attention_kernel_raises_on_inputs_it_does_not_take(cuda_device):
         fa.fused_attention(wide, wide, wide)
 
 
+@pytest.mark.cuda
+def test_no_jr_fusion_over_more_than_128_rows_raises_on_the_card(
+        cuda_device):
+    """``MultimodalTransformerNoJR`` attends over the batch axis (its
+    quirk), so the attention length is the number of rows: past K2's 128
+    the card raises at the kernel's wrapper instead of falling back."""
+    from jmt_tpu_torch.models.jmt import MultimodalTransformerNoJR
+    from jmt_tpu_torch.models.common import init_parameters
+    fusion = init_parameters(MultimodalTransformerNoJR(),
+                             torch.Generator().manual_seed(0)).to(cuda_device)
+    for rows, ok in ((128, True), (129, False)):
+        x = torch.randn(rows, 2, 512, device=cuda_device)
+        with torch.inference_mode():
+            if ok:
+                assert fusion(x, x).shape == (rows, 2, 512)
+            else:
+                with pytest.raises(ValueError, match="Lq, Lk <= 128"):
+                    fusion(x, x)
+
+
 def _bf16(x: np.ndarray) -> np.ndarray:
     """Round float32 values to bfloat16 (nearest even), kept as float32."""
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(

@@ -96,14 +96,14 @@ def _arrays(seed=0, wavlm=True):
 
 
 def _configs(cfg, finetune):
-    """(JAX config, port config): the model's backbones, its freeze flags,
-    SGD with Nesterov momentum."""
+    """(JAX config, port config): the model's backbones, its intra-modal
+    fusion, its freeze flags, SGD with Nesterov momentum."""
     mp = dict(l_vision_backbones=list(cfg["vision_backbones"]),
               l_audio_backbones=list(cfg["audio_backbones"]),
+              intra_modal_fusion=cfg.get("intra_modal_fusion", "None"),
               freeze_vision_R2D1="R2D1" not in finetune,
               freeze_audio_ResNet18="ResNet18" not in finetune)
-    jmp = dict(mp, opt=dict(OPT),
-               intra_modal_fusion=cfg.get("intra_modal_fusion", "None"))
+    jmp = dict(mp, opt=dict(OPT))
     jcfg = JConfig.from_dict({"train_params": {}, "val_params": {},
                               "test_params": {}, "model_params": jmp})
     return jcfg, Config(model_params=ModelParams(**mp,
