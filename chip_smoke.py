@@ -28,13 +28,19 @@ failure raises and the script exits non-zero:
    with encoder_plus_self_attention, ResNet18 & wavLM with
    encoder_plus_self_attention, JMT SELF_ATTEN, 1 head, 1 layer, at full
    width with seeded random weights, bf16, ``i3d_fused_inception=True``,
-   buckets (1, 8), seq 16, 112 px. Requests at batch 1, 3 and 8 with the
-   launch counters set to 0 before and read after (per forward 1 log-mel,
-   12 attention, 9 inception), then p50/p90 per bucket, peak memory and a
-   torch.profiler breakdown of one forward per bucket;
+   buckets (1, 8), seq 16, 112 px, one CUDA graph per bucket. The server
+   built with the launch counters set to 0 before and read after (two
+   warm-up forwards and a capture per bucket) and each graph's capture
+   (per forward 1 log-mel, 12 attention, 9 inception) asserted; requests
+   at batch 1, 3 and 8 through the graphs held against the eager forward
+   (2e-3, bf16), whose launches are counted; then p50/p90 per bucket
+   through the graphs beside the eager path's, peak memory, a
+   torch.profiler breakdown of one eager forward and of one replay per
+   bucket. The earlier phases' servers below are graphed the same way;
 4. the same flagship with the flag off (unfused cuDNN inception): launches
-   of one bucket-8 request (no inception launch) and its p50; the device
-   time of each backbone alone at bucket 8, flag on and off;
+   of one bucket-8 request (no inception launch) and its p50, graph and
+   eager; the device time of each backbone alone at bucket 8, flag on and
+   off;
 5. the flagship with its pools absorbed into K3 (path A): the flag-on
    model with the gate ``ops/kernels/inception._ABSORB_POOLS`` on for the
    phase; launches per forward asserted (1 log-mel, 12 attention, 9
@@ -51,7 +57,8 @@ failure raises and the script exits non-zero:
    Mixed_4b..4f chain with 4 K4 launches a forward (asserted) and with
    cuDNN alone;
 8. card against CPU: the flagship, flag on, one seq-4 request, card f32
-   (kernels, TF32 off) against CPU f32 (plain versions), V/A max abs delta
+   (kernels in a CUDA graph, TF32 off) against CPU f32 (plain versions),
+   V/A max abs delta
    <= 1e-3, with the gate off and on; card bf16 against card f32;
 9. train: the flagship (flag on, bf16, every backbone frozen) through
    ``train/loops.init_state`` with the config's SGD defaults and
@@ -86,7 +93,19 @@ failure raises and the script exits non-zero:
 12. cli_eval: ``--mode Eval`` on cli_train's directory: the components
    give the best epoch's valid CCC, the state the last epoch's (within
    1e-3); ``--eval-split test`` writes a ``{vid}.txt`` per video;
-13. cli_default_config: config.json's own model (R2D1 + ResNet18, FC
+13. serve: ``InferenceServer.from_experiment`` on cli_train's directory,
+   buckets (1, 8): capture seconds and launches per bucket's graph (1 K1,
+   12 K2, 9 K3, asserted), requests of 1, 3, 8 and 11 against the eager
+   forward (2e-3), ``measure_latency`` at buckets 1 and 8 both ways beside
+   the eager path, one profiled replay per bucket, peak memory; a WavLM
+   base+ (12 layers, seed-0 weights saved under ``build/``) frontend
+   through ``from_checkpoint``: a bucket-8 request's 128 chunks card f32
+   (TF32 off) against CPU f32 within 1e-4 of max |ref|, its host resample
+   and device ms apart; raw-audio requests and their p50 at buckets 1 and
+   8; ``WavLMExtractor.per_frame`` over a 30 s wav (900 frames); a
+   ``StreamingSession`` over two synthetic videos against the stitched,
+   smoothed traces of the eager forward (2e-3);
+14. cli_default_config: config.json's own model (R2D1 + ResNet18, FC
    head, bf16) for one epoch (1 K1, 6 K2 a forward, asserted); one eval
    forward each of NoJR (4 K2) and FeatureConcatFC (no K2), card f32
    against CPU f32 within 1e-3; NoJR over 129 rows raises at K2's
@@ -578,35 +597,64 @@ def request(rng, b: int, seq: int, img: int = 112):
 def counted(fn):
     """Run fn with every kernel's launch count set to 0 before; return
     fn's result and the counts read after it."""
-    from jmt_tpu_torch.ops.kernels.fused_attention import fused_attention
-    from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
-    from jmt_tpu_torch.ops.kernels.melspec import log_mel_spec
-    from jmt_tpu_torch.ops.kernels.pool1x1 import pool3_1x1
-    counters = {"log_mel": (log_mel_spec, "launches"),
-                "fused_attention": (fused_attention, "launches"),
-                "inception_module_fused": (inception_module_fused,
-                                           "launches"),
-                "inception_pool_in": (inception_module_fused,
-                                      "pool_in_launches"),
-                "pool3_1x1": (pool3_1x1, "launches")}
-    for w, attr in counters.values():
-        setattr(w, attr, 0)
+    from jmt_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: getattr(w, attr) for k, (w, attr) in counters.items()}
+    return out, launch_counts()
+
+
+REQUEST_KEYS = ("clips", "audio", "wavlm")
+# graph replay against the eager forward, bf16: K3's Mixed_5c launch sums
+# its average pool by f32 atomics, whose order varies run to run (V 4.9e-4,
+# A 9.8e-4 seen between eager runs)
+REPLAY_TOL_BF16 = 2e-3
+
+
+def eager_predict(server, req) -> tuple:
+    """``predict``'s path without the graphs: pad to the bucket (split
+    over the top bucket), copy in, the eager ``forward``, copy out."""
+    n, top = req[0].shape[0], server.buckets[-1]
+    if n > top:
+        parts = [eager_predict(server, tuple(None if x is None
+                                             else x[i:i + top] for x in req))
+                 for i in range(0, n, top)]
+        return tuple(np.concatenate([p[j] for p in parts]) for j in (0, 1))
+    b = next(x for x in server.buckets if x >= n)
+    arrays = {k: torch.from_numpy(np.concatenate(
+        [x, np.zeros((b - n,) + x.shape[1:], x.dtype)])).cuda()
+        for k, x in zip(REQUEST_KEYS, req) if x is not None}
+    v, a = server.forward(arrays)
+    return v[:n].float().cpu().numpy(), a[:n].float().cpu().numpy()
+
+
+def expect_captures(path: str, server) -> None:
+    """Each bucket's graph holds one forward's launches of ``path``."""
+    for b, graph in server.graphs.items():
+        emit({"phase": "capture", "path": path, "bucket": b,
+              "seconds": graph.seconds, **graph.launches})
+        if graph.launches != PER_FORWARD[path]:
+            raise AssertionError(f"{path} bucket {b}: the graph holds "
+                                 f"{graph.launches}, expected "
+                                 f"{PER_FORWARD[path]}")
 
 
 def drive(path: str, server, reqs: dict) -> dict:
-    """One request per batch size in ``reqs``; asserts the launches of
-    each kernel (per forward x forwards) and finite, non-constant V/A."""
-    outs, launches = counted(
-        lambda: {b: server.predict(*req) for b, req in reqs.items()})
+    """One request per batch size in ``reqs`` through ``predict`` (the
+    graphs), each held against the eager forward (``REPLAY_TOL_BF16``)
+    and to finite, non-constant V/A; the launches of each graph's capture
+    and of the eager forwards (per forward x forwards) asserted. Returns
+    the eager forwards' launches."""
+    expect_captures(path, server)
+    outs = {b: server.predict(*req) for b, req in reqs.items()}
+    eager, launches = counted(
+        lambda: {b: eager_predict(server, req) for b, req in reqs.items()})
     expected = {k: v * len(reqs) for k, v in PER_FORWARD[path].items()}
-    emit({"phase": "launches", "path": path, "forwards": len(reqs),
+    emit({"phase": "launches", "path": path, "eager_forwards": len(reqs),
           **launches})
     if launches != expected:
         raise AssertionError(f"{path}: expected launches {expected} for "
-                             f"{len(reqs)} forwards, got {launches}")
+                             f"{len(reqs)} eager forwards, got {launches}")
     for b, (v, a) in outs.items():
         for name, x in (("v", v), ("a", a)):
             if x.shape != (b, server.seq) or not np.isfinite(x).all() \
@@ -614,36 +662,54 @@ def drive(path: str, server, reqs: dict) -> dict:
                 raise AssertionError(f"{path} batch {b} {name}: shape "
                                      f"{x.shape}, finite="
                                      f"{np.isfinite(x).all()}, std={np.std(x)}")
+        delta = va_max_abs((v, a), eager[b])
         emit({"phase": "server_output", "path": path, "batch": b,
               "v_std": float(np.std(v)), "a_std": float(np.std(a)),
-              "v_mean": float(np.mean(v)), "a_mean": float(np.mean(a))})
+              "v_mean": float(np.mean(v)), "a_mean": float(np.mean(a)),
+              "replay_vs_eager_va_max_abs": delta})
+        if not delta <= REPLAY_TOL_BF16:
+            raise AssertionError(f"{path} batch {b}: replay against eager "
+                                 f"V/A {delta} (limit {REPLAY_TOL_BF16})")
     return launches
 
 
+def latencies(path: str, server, req, iters: int = 12) -> None:
+    """Request p50/p90 through the graphs beside the eager path's."""
+    for mode, fn in (("graph", server.predict),
+                     ("eager", lambda *r: eager_predict(server, r))):
+        emit({"phase": "server_latency", "path": path, "mode": mode,
+              **request_latency(fn, req, iters=iters)})
+
+
 def phase_flagship(rng) -> tuple:
-    """The main path: the flagship server with K3 on."""
+    """The main path: the flagship server with K3 on, one CUDA graph per
+    bucket. Returns the launches of one graphed forward (bucket 8's
+    capture), the model and the requests."""
     from jmt_tpu_torch.serve import InferenceServer
     model = make_model(FLAGSHIP_CONFIG, torch.bfloat16,
                        i3d_fused_inception=True)
-    server = InferenceServer(model, seq=16, buckets=(1, 8))
+    # two warm-up forwards and the capture per bucket
+    server, built = counted(lambda: InferenceServer(model, seq=16,
+                                                    buckets=(1, 8)))
+    expect_launches("flagship server build", built, PER_FORWARD["flagship"],
+                    3 * len(server.buckets))
     reqs = {b: request(rng, b, 16) for b in (1, 3, 8)}
-    server.predict(*reqs[1])  # first call: cuDNN autotune, library load
-    torch.cuda.synchronize()
-    launches = drive("flagship", server, reqs)
+    drive("flagship", server, reqs)
 
     # bf16 serving under PyTorch's default flags (cuDNN may use TF32 for
     # the f32-engine convs whose channel counts are not multiples of 8)
     torch.cuda.reset_peak_memory_stats()
     flags = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
              "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    emit({"phase": "server_flags", "path": "flagship", **flags})
     for b in (1, 8):
-        emit({"phase": "server_latency", "path": "flagship",
-              **request_latency(server, reqs[b]), **flags})
+        latencies("flagship", server, reqs[b])
     emit({"phase": "server_memory", "path": "flagship",
           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-    profile_forward("flagship", server, reqs[1])
-    profile_forward("flagship", server, reqs[8])
-    return launches, model, reqs
+    for b in (1, 8):
+        profile_forward("flagship", server, reqs[b])
+        profile_replay("flagship", server, b)
+    return server.graphs[8].launches, model, reqs
 
 
 def phase_flag_off(model_on, req8) -> None:
@@ -654,12 +720,10 @@ def phase_flag_off(model_on, req8) -> None:
                        i3d_fused_inception=False)
     model.load_state_dict(model_on.state_dict())
     server = InferenceServer(model, seq=16, buckets=(1, 8))
-    server.predict(*req8)
-    torch.cuda.synchronize()
     drive("flagship_flag_off", server, {8: req8})
-    emit({"phase": "server_latency", "path": "flagship_flag_off",
-          **request_latency(server, req8)})
+    latencies("flagship_flag_off", server, req8)
     profile_forward("flagship_flag_off", server, req8)
+    del server
     layer_times(model_on, model, req8)
 
 
@@ -676,21 +740,23 @@ def absorb_pools():
 
 
 def phase_absorbed(model_on, reqs) -> dict:
-    """Path A: the flag-on model with the pools absorbed into K3; returns
-    the launches of its counted run."""
+    """Path A: the flag-on model with the pools absorbed into K3 (the gate
+    is read at forward time, so its graphs are captured under it); returns
+    the launches of one graphed forward."""
     from jmt_tpu_torch.serve import InferenceServer
-    server = InferenceServer(model_on, seq=16, buckets=(1, 8))
+    server = InferenceServer(model_on, seq=16, buckets=(8,))
     flag_on = [server.predict(*reqs[8]) for _ in range(2)]
+    del server
     with absorb_pools():
-        launches = drive("flagship_absorbed", server, reqs)
+        server = InferenceServer(model_on, seq=16, buckets=(1, 8))
+        drive("flagship_absorbed", server, reqs)
         absorbed = server.predict(*reqs[8])
         # flag on twice: the run-to-run spread (avg_tail sums by atomics)
         emit({"phase": "absorbed_vs_flag_on", "batch": 8,
               "va_max_abs": va_max_abs(absorbed, flag_on[0]),
               "flag_on_rerun_va_max_abs": va_max_abs(*flag_on)})
         for b in (1, 8):
-            emit({"phase": "server_latency", "path": "flagship_absorbed",
-                  **request_latency(server, reqs[b])})
+            latencies("flagship_absorbed", server, reqs[b])
         profile_forward("flagship_absorbed", server, reqs[8])
         x = i3d_input(model_on, reqs[8])
         with torch.inference_mode():
@@ -698,7 +764,7 @@ def phase_absorbed(model_on, reqs) -> dict:
                   "i3d_tcn_absorbed_ms": time_ms(
                       lambda: model_on.backbones._i3d_trunk(x), iters=5,
                       warmup=1)})
-    return launches
+    return server.graphs[8].launches
 
 
 def va_max_abs(x, y) -> float:
@@ -752,12 +818,9 @@ def phase_slice(rng) -> None:
     server = InferenceServer(make_model(SLICE_CONFIG, torch.bfloat16),
                              seq=16, buckets=(1, 8))
     reqs = {b: request(rng, b, 16) for b in (1, 8)}
-    server.predict(*reqs[1])
-    torch.cuda.synchronize()
     drive("slice", server, reqs)
     for b in (1, 8):
-        emit({"phase": "server_latency", "path": "slice",
-              **request_latency(server, reqs[b], iters=8)})
+        latencies("slice", server, reqs[b], iters=8)
 
 
 def phase_pool1x1(registers: dict) -> dict:
@@ -836,13 +899,13 @@ def phase_pool1x1(registers: dict) -> dict:
             "launches": launches["pool3_1x1"]}
 
 
-def request_latency(server, req, iters: int = 12, warmup: int = 2) -> dict:
-    """p50/p90 of ``predict`` on the host clock (it returns numpy, so each
-    call ends synchronized), and clips/s at the p50."""
+def request_latency(predict, req, iters: int = 12, warmup: int = 2) -> dict:
+    """p50/p90 of ``predict(*req)`` on the host clock (it returns numpy, so
+    each call ends synchronized), and clips/s at the p50."""
     times = []
     for i in range(warmup + iters):
         t0 = time.perf_counter()
-        server.predict(*req)
+        predict(*req)
         if i >= warmup:
             times.append((time.perf_counter() - t0) * 1e3)
     times.sort()
@@ -885,6 +948,32 @@ def profile_forward(path: str, server, req, reps: int = 3) -> None:
                   for r in rows[:25]]})
 
 
+def profile_replay(path: str, server, b: int, reps: int = 3) -> None:
+    """One bucket's graph replayed ``reps`` times under torch.profiler:
+    device ms, idle share and kernels per replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    graph = server.graphs[b]
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    rows = [(ev.self_device_time_total / reps / 1e3, ev.count / reps)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    busy = sum(r[0] for r in rows)
+    emit({"phase": "profile_replay", "path": path, "batch": b,
+          "wall_ms_per_replay": wall_ms, "device_ms_per_replay": busy,
+          "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+          "kernels_per_replay": sum(r[1] for r in rows)})
+
+
 def phase_card_vs_cpu() -> None:
     """The flagship, flag on, with the pools pooled first and absorbed:
     card f32 (kernels, TF32 off) against CPU f32 (plain versions)."""
@@ -904,9 +993,12 @@ def phase_card_vs_cpu() -> None:
             ("cpu_f32_absorbed", f32_cpu, "cpu", True))
     out = {}
     for name, model, dev, absorbed in runs:
-        server = InferenceServer(model, seq=4, buckets=(1,), device=dev)
         with absorb_pools() if absorbed else contextlib.nullcontext():
+            server = InferenceServer(model, seq=4, buckets=(1,), device=dev)
             out[name], launches = counted(lambda: server.predict(*req))
+        if server.graphs:  # the card's: the launches its graph holds
+            launches = server.graphs[1].launches
+        del server
         emit({"phase": "card_vs_cpu_launches", "run": name, **launches})
         if name == "card_f32_absorbed" and launches["inception_pool_in"] != 3:
             raise AssertionError(f"{name}: 3 pool_in launches expected, got "
@@ -1454,6 +1546,204 @@ def phase_cli_eval(exp: str) -> None:
         raise AssertionError(f"cli_eval test: {txts}, {lines}")
 
 
+# ---------------------------------------------------------------------------
+# serve: a trained experiment behind one CUDA graph per bucket, raw audio,
+# the extractor and a streaming session
+# ---------------------------------------------------------------------------
+SERVE_REQUESTS = (1, 3, 8, 11)
+WAVLM_CKPT = "build/chip_wavlm/wavlm_base_plus_seed0.pt"
+# relative bound of card f32 (TF32 off) against CPU f32 WavLM features
+WAVLM_REL_TOL = 1e-4
+
+
+def eager_latency(server, b: int, iters: int = 10, warmup: int = 2
+                  ) -> tuple:
+    """The eager path's p50/p90 beside ``measure_latency``'s two ways:
+    ``eager_predict`` end to end, and the eager forward of inputs already
+    on the card plus a scalar read."""
+    req = request(np.random.default_rng(0), b, server.seq)
+    arrays = {k: torch.from_numpy(x).cuda()
+              for k, x in zip(REQUEST_KEYS, req)}
+
+    def resident(*_):
+        v, _ = server.forward(arrays)
+        float(v.float().sum())
+
+    return tuple(dict(request_latency(fn, req, iters, warmup),
+                      device_input=device_input)
+                 for device_input, fn in (
+                     (False, lambda *r: eager_predict(server, r)),
+                     (True, resident)))
+
+
+def write_wavlm_checkpoint() -> str:
+    """wavlm-base-plus geometry, 12 layers, seed-0 random weights (Hugging
+    Face's initializers), saved as a Hugging Face state dict."""
+    from jmt_tpu_torch.models import wavlm
+    os.makedirs(os.path.dirname(WAVLM_CKPT), exist_ok=True)
+    model = wavlm.init_parameters(wavlm.WavLMModel(),
+                                  torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), WAVLM_CKPT)
+    return WAVLM_CKPT
+
+
+def check_wavlm(frontend, audio: np.ndarray) -> None:
+    """The frontend on a bucket-8 request's chunks: host resample ms and
+    WavLM device ms apart (CUDA events), and its features, card f32 with
+    TF32 off, against the same checkpoint's WavLM on the CPU in f32."""
+    from jmt_tpu_torch.data.wavlm_extract import load_torch_checkpoint
+    resample_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        w16 = frontend.resample(audio)
+        resample_ms.append((time.perf_counter() - t0) * 1e3)
+    with full_fp32():
+        card = frontend.embed(w16).cpu().numpy()
+        device_ms = time_ms(lambda: frontend.embed(w16), iters=5, warmup=1)
+        cpu_model, cfg = load_torch_checkpoint(WAVLM_CKPT)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = cpu_model(torch.from_numpy(w16))[:, -1].numpy()
+        cpu_s = time.perf_counter() - t0
+    rel = float(np.abs(card - ref).max() / np.abs(ref).max())
+    frames = cfg.n_frames(w16.shape[1])
+    # per layer and token: 4 E^2 projections, 2 E F MLP, 2 T E scores
+    # and mix, each a multiply-add
+    t, e, f = frames, cfg.hidden_size, cfg.intermediate_size
+    layers = 2 * t * (4 * e * e + 2 * e * f + 2 * t * e) \
+        * cfg.num_hidden_layers
+    n = w16.shape[1]
+    conv = 0
+    dims = (1,) + tuple(cfg.conv_dim)
+    for i, (k, st) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
+        n = (n - k) // st + 1
+        conv += 2 * n * dims[i] * dims[i + 1] * k
+    pos = 2 * t * e * (e // cfg.num_conv_pos_embedding_groups) \
+        * cfg.num_conv_pos_embeddings
+    flops = w16.shape[0] * (layers + conv + pos + 2 * t * 512 * e)
+    bound_ms, bound_by = bound(w16.nbytes + card.nbytes, flops,
+                               F32_PEAK_FLOPS)
+    emit({"phase": "serve_wavlm", "chunks": int(w16.shape[0]),
+          "samples_16k": int(w16.shape[1]), "frames": frames,
+          "resample_ms": resample_ms, "device_ms": device_ms,
+          "tflop": flops / 1e12, "bound_ms": bound_ms, "bound_by": bound_by,
+          "cpu_f32_seconds": cpu_s, "card_f32_vs_cpu_f32_rel": rel})
+    if not (np.isfinite(card).all() and rel <= WAVLM_REL_TOL):
+        raise AssertionError(f"WavLM card f32 vs CPU f32: {rel} of max "
+                             f"|ref| (limit {WAVLM_REL_TOL})")
+
+
+def check_extractor(frontend) -> None:
+    """``WavLMExtractor.per_frame`` over a 30 s synthetic wav at 30 fps
+    (20 s windows, 2 s overlap): its frame count and seconds per audio
+    second."""
+    from jmt_tpu_torch.data.wavlm_extract import WavLMExtractor
+    ex = WavLMExtractor(frontend.model)
+    t = np.arange(30 * 16000) / 16000
+    rng = np.random.default_rng(4)
+    wav = (0.3 * np.sin(2 * np.pi * 220 * t)
+           + 0.05 * rng.normal(size=t.shape)).astype(np.float32)
+    ex.per_frame(wav[:16000], 30, 30.0)  # the 20 s window's first forward
+    t0 = time.perf_counter()
+    feats = ex.per_frame(wav, 900, 30.0)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "serve_extractor", "frames": int(feats.shape[0]),
+          "seconds": seconds, "seconds_per_audio_second": seconds / 30})
+    if feats.shape != (900, 768) or not np.isfinite(feats).all():
+        raise AssertionError(f"extractor: {feats.shape}")
+
+
+def check_streaming(server) -> None:
+    """A StreamingSession over the ordered windows of two synthetic
+    videos, fed one batch (its real rows) at a time through the graphs,
+    against the stitched, smoothed traces of ``eval/stitch.Stitcher`` over
+    the same windows through the eager forward."""
+    from jmt_tpu_torch.eval.stitch import Stitcher
+    from jmt_tpu_torch.serve import StreamingSession
+    session = StreamingSession(server)
+    stitcher = Stitcher(with_labels=False)
+    t0 = time.perf_counter()
+    for batch in stitch_batches(6, img=112):
+        n = batch.n_real
+        session.feed(batch.clips[:n], batch.audio[:n], batch.wavlm[:n],
+                     batch.anchors[:n], batch.videos[:n], batch.lengths[:n])
+        v, a = eager_predict(server, (batch.clips, batch.audio,
+                                      batch.wavlm))
+        stitcher.add_batch(v, a, batch.anchors, batch.videos,
+                           batch.lengths, n_real=n)
+    seconds = time.perf_counter() - t0
+    traces = session.finish_all()
+    sv, sa = stitcher.smoothed()
+    delta = max(max(float(np.abs(traces[vid][0] - sv[vid]).max()),
+                    float(np.abs(traces[vid][1] - sa[vid]).max()))
+                for vid in sv)
+    emit({"phase": "serve_streaming", "videos": sorted(traces),
+          "frames": [len(traces[vid][0]) for vid in sorted(traces)],
+          "seconds": seconds, "stream_vs_stitch_max_abs": delta})
+    if sorted(traces) != sorted(sv) or not delta <= REPLAY_TOL_BF16:
+        raise AssertionError(f"streaming against stitching: {delta}")
+
+
+def phase_serve(exp: str) -> None:
+    """``InferenceServer.from_experiment`` on ``cli_train``'s directory:
+    capture seconds and launches per bucket's graph (asserted), requests
+    against the eager forward, ``measure_latency`` both ways beside the
+    eager path, a profiled replay per bucket, peak memory; then raw audio
+    through a WavLM base+ frontend, the extractor and a streaming
+    session."""
+    from jmt_tpu_torch.serve import (InferenceServer, WavLMFrontend,
+                                     measure_latency)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = InferenceServer.from_experiment(exp, buckets=(1, 8))
+    emit({"phase": "serve_build", "seconds": time.perf_counter() - t0})
+    expect_captures("flagship", server)
+    rng = np.random.default_rng(11)
+    for n in SERVE_REQUESTS:
+        req = request(rng, n, 16)
+        got = server.predict(*req)
+        delta = va_max_abs(got, eager_predict(server, req))
+        emit({"phase": "serve_request", "n": n,
+              "replay_vs_eager_va_max_abs": delta})
+        if not (got[0].shape == (n, 16) and np.isfinite(got).all()
+                and delta <= REPLAY_TOL_BF16):
+            raise AssertionError(f"serve request {n}: {delta}")
+    for b in (1, 8):
+        for device_input in (False, True):
+            emit({"phase": "serve_latency", "mode": "graph",
+                  **measure_latency(server, b, iters=10,
+                                    device_input=device_input)})
+        for rec in eager_latency(server, b):
+            emit({"phase": "serve_latency", "mode": "eager", **rec})
+        profile_replay("serve", server, b)
+    emit({"phase": "serve_memory",
+          "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    del server
+    torch.cuda.empty_cache()
+
+    frontend = WavLMFrontend.from_checkpoint(write_wavlm_checkpoint())
+    check_wavlm(frontend, request(rng, 8, 16)[1])
+    server = InferenceServer.from_experiment(exp, buckets=(1, 8),
+                                             wavlm_frontend=frontend)
+    clips, audio, _ = request(rng, 3, 16)
+    raw = server.predict(clips, audio)
+    given = server.predict(clips, audio, frontend.features(
+        np.concatenate([audio, np.zeros((5,) + audio.shape[1:],
+                                        np.float32)]))[:3])
+    emit({"phase": "serve_raw_audio", "n": 3,
+          "raw_vs_given_features_va_max_abs": va_max_abs(raw, given)})
+    if not va_max_abs(raw, given) <= REPLAY_TOL_BF16:
+        raise AssertionError("raw-audio predict against predict given "
+                             "the frontend's features")
+    for b, iters in ((1, 8), (8, 4)):
+        emit({"phase": "serve_latency", "mode": "graph_raw_audio",
+              **measure_latency(server, b, iters=iters, warmup=1)})
+    check_extractor(frontend)
+    check_streaming(server)
+    del server, frontend
+    torch.cuda.empty_cache()
+
+
 def phase_cli_default_config() -> None:
     """config.json's own model (R2D1 + ResNet18, FC head, bf16) through
     the CLI for one epoch; then one eval forward each of the NoJR and the
@@ -1735,6 +2025,8 @@ def main() -> int:
         phase_cli_resume(exp)
     with phase("cli_eval"):
         phase_cli_eval(exp)
+    with phase("serve"):
+        phase_serve(exp)
     with phase("cli_default_config"):
         phase_cli_default_config()
     for rec in kernels:
@@ -1742,7 +2034,8 @@ def main() -> int:
     kernels[2]["pool_in"] = dict(
         k3_pool_in, launches=absorbed["inception_module_fused"],
         pool_in_launches=absorbed["inception_pool_in"],
-        launches_of="the flagship_absorbed run (3 forwards)")
+        launches_of="one graphed forward of the flagship_absorbed server "
+                    "(bucket 8's capture)")
     kernels[2]["registers"] = {
         "bf16 (igemm_sm90)": max((v for f, v in registers["inception"].items()
                                   if "igemm_sm90" in f), default=None),

@@ -8,7 +8,11 @@ the log-mel front end (``ops/kernels/melspec.py``) and the attention core
 
 Entry points: the trainer, ``python -m jmt_tpu_torch.cli`` (config,
 windowed data, ``train/runner.Runner`` with checkpoints, resume and Eval
-mode), and the server, ``jmt_tpu_torch.serve.InferenceServer``.
+mode); the server, ``jmt_tpu_torch.serve`` (``InferenceServer`` with one
+CUDA graph per bucket on the card, ``from_experiment``, raw audio through
+``WavLMFrontend``, ``StreamingSession``, ``measure_latency``, ``python -m
+jmt_tpu_torch.serve``); and the WavLM feature extractor, ``python -m
+jmt_tpu_torch.data.wavlm_extract``.
 """
 from jmt_tpu_torch.device import resolve_device
 

@@ -11,6 +11,7 @@ convert to NCTHW.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -41,6 +42,16 @@ def sample_color_factors(generator: Optional[torch.Generator],
     return bf, uniform(contrast)
 
 
+@functools.lru_cache(maxsize=8)
+def _constants(device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """Mean, std and luma weights on ``device``, copied there once, so
+    that a forward makes no host-to-device copy (a CUDA graph captures
+    it)."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in (VIS_MEAN, VIS_STD, _LUMA))
+
+
 def preprocess_clips(clips_u8: torch.Tensor,
                      brightness: Optional[torch.Tensor] = None,
                      contrast: Optional[torch.Tensor] = None,
@@ -52,8 +63,7 @@ def preprocess_clips(clips_u8: torch.Tensor,
     if clips_u8.dtype != torch.uint8:
         raise TypeError(f"preprocess_clips takes uint8, got {clips_u8.dtype}")
     dev = clips_u8.device
-    mean = torch.from_numpy(VIS_MEAN).to(dev)
-    std = torch.from_numpy(VIS_STD).to(dev)
+    mean, std, luma_weights = _constants(dev)
     x = clips_u8.float()
     if augment:
         if brightness is None or contrast is None:
@@ -64,7 +74,7 @@ def preprocess_clips(clips_u8: torch.Tensor,
                              f"got {tuple(clips_u8.shape)}")
         shape = (-1, 1, 1, 1, 1)
         x = torch.clamp(x * brightness.to(dev).view(shape), 0.0, 255.0)
-        gray = torch.einsum("nthwc,c->nthw", x, torch.from_numpy(_LUMA).to(dev))
+        gray = torch.einsum("nthwc,c->nthw", x, luma_weights)
         luma = torch.mean(gray, dim=(1, 2, 3)).view(shape)
         c = contrast.to(dev).view(shape)
         x = torch.clamp(c * x + (1.0 - c) * luma, 0.0, 255.0)

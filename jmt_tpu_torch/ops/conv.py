@@ -23,6 +23,7 @@ to a later slice.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -90,6 +91,19 @@ _UPSAMPLE2X_ALPHA = {
 }
 
 
+@functools.lru_cache(maxsize=8)
+def _fold_constants(device: torch.device):
+    """The fold matrix and the border alphas on ``device``, copied there
+    once, so that a forward makes no host-to-device copy (a CUDA graph
+    captures it) and autograd may save them."""
+    with torch.inference_mode(False):
+        m = torch.tensor(_UPSAMPLE2X_FOLD, dtype=torch.float32,
+                         device=device)
+        alphas = {k: torch.tensor(a, dtype=torch.float32, device=device)
+                  for k, a in _UPSAMPLE2X_ALPHA.items()}
+    return m, alphas
+
+
 def conv3d_stem_upsample2x(x: torch.Tensor, weight: torch.Tensor,
                            t_pad: Tuple[int, int],
                            compute_dtype: Optional[torch.dtype] = None
@@ -108,12 +122,7 @@ def conv3d_stem_upsample2x(x: torch.Tensor, weight: torch.Tensor,
     if h < 4 or w < 4:  # the border sets {0, n-2, n-1} must be distinct
         raise ValueError(f"stem fold needs H, W >= 4, got {(h, w)}")
     wf = weight.float()
-    m = torch.tensor(_UPSAMPLE2X_FOLD, dtype=torch.float32,
-                     device=weight.device)
-
-    def vec(a):
-        return torch.tensor(a, dtype=torch.float32, device=weight.device)
-
+    m, alpha = _fold_constants(weight.device)
     k5 = cast(torch.einsum("ah,bw,oithw->oitab", m, m, wf), compute_dtype)
     x = cast(x, compute_dtype)
     # x^ extended: replicate 1 (the upsample's edge clamp), then zero 1
@@ -122,28 +131,26 @@ def conv3d_stem_upsample2x(x: torch.Tensor, weight: torch.Tensor,
     t0, t1 = t_pad
     out = F.conv3d(F.pad(xz, (0, 0, 0, 0, t0, t1)), k5)
 
-    alphas = {0: _UPSAMPLE2X_ALPHA["lo"], h - 2: _UPSAMPLE2X_ALPHA["hi1"],
-              h - 1: _UPSAMPLE2X_ALPHA["hi0"]}
-    walphas = {0: _UPSAMPLE2X_ALPHA["lo"], w - 2: _UPSAMPLE2X_ALPHA["hi1"],
-               w - 1: _UPSAMPLE2X_ALPHA["hi0"]}
+    alphas = {0: alpha["lo"], h - 2: alpha["hi1"], h - 1: alpha["hi0"]}
+    walphas = {0: alpha["lo"], w - 2: alpha["hi1"], w - 1: alpha["hi0"]}
     border_row = {0: 0, h - 2: h - 1, h - 1: h - 1}
     border_col = {0: 0, w - 2: w - 1, w - 1: w - 1}
     tpad = (t0, t1)
     # subtract the folded conv's phantom terms on border rows and columns
     for jh, av in alphas.items():
-        krow = cast(torch.einsum("h,bw,oithw->oitb", vec(av), m, wf),
+        krow = cast(torch.einsum("h,bw,oithw->oitb", av, m, wf),
                     compute_dtype)
         row = xz[:, :, :, border_row[jh] + 2, :]          # (N, Ci, T, W+4)
         out[:, :, :, jh, :] -= F.conv2d(F.pad(row, (0, 0) + tpad), krow)
     for jw, av in walphas.items():
-        kcol = cast(torch.einsum("w,ah,oithw->oita", vec(av), m, wf),
+        kcol = cast(torch.einsum("w,ah,oithw->oita", av, m, wf),
                     compute_dtype)
         col = xz[:, :, :, :, border_col[jw] + 2]          # (N, Ci, T, H+4)
         out[:, :, :, :, jw] -= F.conv2d(F.pad(col, (0, 0) + tpad), kcol)
     # corners were subtracted twice: add back once
     for jh, ah in alphas.items():
         for jw, aw in walphas.items():
-            kc = cast(torch.einsum("h,w,oithw->oit", vec(ah), vec(aw), wf),
+            kc = cast(torch.einsum("h,w,oithw->oit", ah, aw, wf),
                       compute_dtype)
             px = x[:, :, :, border_row[jh], border_col[jw]]  # (N, Ci, T)
             out[:, :, :, jh, jw] += F.conv1d(F.pad(px, tpad), kc)

@@ -10,7 +10,9 @@ dispatch and refusals, the kernels' host-side constants, and numpy
 emulations of the log-mel, attention, inception (with its pool prologue,
 and as the bf16 launches tile it) and pool + 1x1 kernels' arithmetic (the
 latter's f32 launch and its bf16 Hopper design) held to the plain
-versions.
+versions. On the card also the server's CUDA graphs: each bucket's replay
+against the eager forward, the kernel launches inside each capture, and a
+capture that fails raising.
 """
 import itertools
 
@@ -1222,3 +1224,85 @@ def test_pool1x1_kernel_raises_on_inputs_it_does_not_take(cuda_device):
         k4.pool3_1x1(x, k.cpu())
     with pytest.raises(ValueError):
         k4.pool3_1x1(x, _k4_weight(16, 12).to(cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# the server's CUDA graphs
+# ---------------------------------------------------------------------------
+FLAGSHIP = dict(vision_backbones=("R2D1", "I3D"),
+                audio_backbones=("ResNet18", "wavLM"),
+                intra_modal_fusion="encoder_plus_self_attention",
+                r2d1_reduce="MAX", i3d_input_size=224,
+                i3d_fused_inception=True)
+
+
+def _flagship_server(dtype, cuda_device):
+    from jmt_tpu_torch.models.common import init_parameters
+    from jmt_tpu_torch.models.jmt_model import JMTModel
+    from jmt_tpu_torch.serve import InferenceServer
+    model = init_parameters(JMTModel(**FLAGSHIP, dtype=dtype),
+                            torch.Generator().manual_seed(0))
+    return InferenceServer(model, seq=2, buckets=(1, 2), device=cuda_device)
+
+
+def _request(n, seq=2, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n, seq, 8, 112, 112, 3), dtype=np.uint8),
+            (0.1 * rng.normal(size=(n, seq, 45599))).astype(np.float32),
+            rng.normal(size=(n, seq, 768)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-3)],
+                         ids=["f32", "bf16"])
+def test_graph_replay_matches_eager_forward_on_card(dtype, tol, cuda_device,
+                                                    monkeypatch):
+    """Replay against the eager forward on the same bucket inputs. bf16:
+    K3's Mixed_5c launch sums its average pool by f32 atomics, whose
+    order varies run to run (V 4.9e-4, A 9.8e-4 seen); f32 with TF32 off.
+    Each bucket's capture holds 1 log-mel, 12 attention and 9 inception
+    launches."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    server = _flagship_server(dtype, cuda_device)
+    for b, graph in server.graphs.items():
+        assert graph.launches == {"log_mel": 1, "fused_attention": 12,
+                                  "inception_module_fused": 9,
+                                  "inception_pool_in": 0, "pool3_1x1": 0}
+        req = _request(b, seed=b)
+        v, a = server.predict(*req)
+        arrays = {k: torch.from_numpy(x).to(cuda_device)
+                  for k, x in zip(("clips", "audio", "wavlm"), req)}
+        ve, ae = server.forward(arrays)
+        for got, want in ((v, ve), (a, ae)):
+            want = want.float().cpu().numpy()
+            assert np.isfinite(got).all() and np.std(got) > 0
+            np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_and_moved_weights_are_refused(cuda_device):
+    from jmt_tpu_torch.serve import InferenceServer
+
+    class HostRead(torch.nn.Module):
+        vision_backbones, audio_backbones = (), ("wavLM",)
+        use_wavlm, dtype = True, None
+
+        def __init__(self):
+            super().__init__()
+            self.fc = torch.nn.Linear(768, 2)
+
+        def forward(self, spec, clips, wavlm):
+            out = self.fc(wavlm)
+            if float(out.sum()) > 1e30:  # a host read: no graph can hold it
+                out = 2 * out
+            return out[..., 0], out[..., 1]
+
+    with pytest.raises(Exception, match="captur"):
+        InferenceServer(HostRead(), seq=2, buckets=(1,), device=cuda_device)
+    torch.cuda.synchronize()
+    server = _flagship_server(torch.bfloat16, cuda_device)
+    server.model.cpu()
+    with pytest.raises(RuntimeError, match="moved"):
+        server.predict(*_request(1))
