@@ -119,9 +119,11 @@ def build_config(args) -> Config:
     return Config.from_dict(apply_overrides(raw, overrides))
 
 
-def make_datasets(cfg: Config, synthetic: str = None):
+def make_datasets(cfg: Config, synthetic: str = None, **dataset_kw):
     """(train, val, test or None, wavLM store or None) of the config, or
-    of the synthetic source ``N:LEN[:IMG]``."""
+    of the synthetic source ``N:LEN[:IMG]``. ``dataset_kw`` go to each
+    ``WindowedDataset`` of a configured tree (a ``frame_loader``, a
+    ``use_native``)."""
     if synthetic:
         from jmt_tpu_torch.data.synthetic import (synthetic_dataset,
                                                   synthetic_wavlm_store)
@@ -156,7 +158,8 @@ def make_datasets(cfg: Config, synthetic: str = None):
     def windowed(recs, split, params, **kw):
         return WindowedDataset(recs, split, stride=params.stride,
                                win_length=params.seq_length,
-                               audio_samples=cfg.audio_samples, **kw)
+                               audio_samples=cfg.audio_samples, **kw,
+                               **dataset_kw)
 
     train = windowed(records(cfg.train_params, skip=TRAIN_SKIP_VIDS,
                              take_n_videos=cfg.train_params.take_n_videos),

@@ -92,6 +92,14 @@ def _save(path: str, obj) -> str:
     return path
 
 
+def strip_module_prefix(sd: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """Without nn.DataParallel's ``module.`` prefixes (the reference's
+    main.py:54-70)."""
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in sd.items()}
+
+
 def _refuse_msgpack(directory: str, what: str) -> None:
     raise FileNotFoundError(
         f"{directory} holds the JAX package's .msgpack files and no {what}: "
@@ -176,9 +184,8 @@ def assemble_from_components(directory: str, model: torch.nn.Module
         path = os.path.join(directory, f"{name}.pt")
         if not want or not os.path.isfile(path):
             continue
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        sd = {k[len("module."):] if k.startswith("module.") else k: v
-              for k, v in sd.items()}
+        sd = strip_module_prefix(torch.load(path, map_location="cpu",
+                                            weights_only=True))
         missing = [k for k in want if k not in sd]
         shapes = [k for k in want if k in sd
                   and tuple(sd[k].shape) != tuple(want[k].shape)]

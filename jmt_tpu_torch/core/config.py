@@ -251,7 +251,8 @@ class Config:
     dataset_wavspath: str = ""
     dataset_realtimestamps: str = ""
     wavlm_features: str = ""
-    # root of the pretrained backbone checkpoints (init_w_*; not ported)
+    # root of the pretrained backbone checkpoints (init_w_*,
+    # models/pretrained.py)
     pretrained_weights_dir: str = ""
     # annotation roots of the split -> labelpath convention
     dataset_annotations: str = ""

@@ -45,7 +45,9 @@
 // (outside the ring, which the producer is filling) and writes 16-byte
 // rows into the channel-concat layout; for
 // avg_tail the f32 sums of each (n, t) over a warp's 16 rows are reduced
-// across its lanes before one atomicAdd per (n, t, column) and warp.
+// across its lanes and stored into the slot of that (n, t) and 16-row
+// block (avg_slots: each (block, column) has one owning warp, so no slot
+// has two writers).
 //
 // Persistent: one block per SM walks the launch's tile list (blockIdx.x,
 // + gridDim.x, ...) over up to three problems in problem order; the ring
@@ -518,7 +520,7 @@ __device__ __forceinline__ void consume(const Launch90& P, const TileAt& at,
   // 8 i + 2 (lane % 4) (+ 1). Columns bound for a tensor go 16 at a time
   // through the warp's patch and out as 16-byte rows; avg_tail's columns
   // are summed over each (n, t) of the warp's 16 rows across its lanes
-  // before one atomicAdd per (n, t, column) and warp.
+  // and stored into the slot of that (n, t) and the warp's row block.
   const Problem& p = P.L.p[at.prob];
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int rows = P.L.rows, hw = P.L.h * P.L.w;
@@ -564,10 +566,11 @@ __device__ __forceinline__ void consume(const Launch90& P, const TileAt& at,
           s1 += __shfl_xor_sync(0xffffffffu, s1, off);
         }
         if (lane < 4) {
-          float* d =
-              seg.sums + (size_t)gi * seg.ld + seg.off + col - seg.begin;
-          atomicAdd(d, s0);
-          atomicAdd(d + 1, s1);
+          const int slot = rw / 16 - gi * hw / 16;
+          float* d = seg.sums + ((size_t)gi * P.L.slots + slot) * seg.ld +
+                     seg.off + col - seg.begin;
+          d[0] = s0;
+          d[1] = s1;
         }
       }
     }

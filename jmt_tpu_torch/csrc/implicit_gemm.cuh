@@ -35,7 +35,7 @@ enum Variant : int { kPlain = 0, kPoolIn = 1, kNegInf = 2 };
 
 // A run of GEMM columns [begin, end) and where its epilogue writes: row r,
 // column c goes to dst[r * ld + off + c - begin] in the working dtype, or,
-// with sums, is added to sums[(r / (H W)) * ld + off + c - begin] in f32.
+// with sums (avg_tail), into a slot of its (n, t) group in f32 (avg_slots).
 struct Seg {
   void* dst;
   float* sums;
@@ -57,7 +57,21 @@ struct Launch {
   Problem p[kMaxProb];
   int nprob, rows, t, h, w;  // rows = N * T * H * W
   int pool_kt, pool_k;       // kPoolIn: window (kt, k, k), stride (1, 2, 2)
+  int slots;                 // avg_tail: slots per (n, t) group
 };
+
+// avg_tail's sums in a fixed order. The epilogues write each f32 partial
+// sum of an (n, t) group (H W rows) by a plain store into a slot of its
+// own, and the last pass adds a group's slots in index order, so that the
+// sums are the same bits run to run (atomics added them in whatever order
+// the warps came). Group g's slot j of column c is
+// sums[(g * slots + j) * ld + c]. The bf16 epilogue (igemm_sm90.cuh) writes
+// one slot per 16-row block the group touches (its warp's sum over its
+// rows of the group), hw + 14 rows at most, so (hw + 14) / 16 + 1 slots;
+// the f32 one (emit) one slot per row.
+__host__ __device__ inline int avg_slots(int hw, bool bf16) {
+  return bf16 ? (hw + 14) / 16 + 1 : hw;
+}
 
 template <typename T> struct Tile;
 template <> struct Tile<bf16> {
@@ -189,8 +203,8 @@ __device__ __forceinline__ void emit(const Problem& p, int hw, int row,
   if (g.round_first) v = to_f(from_f<T>(v));
   v = fmaxf(v, 0.0f);
   const int c = g.off + col - g.begin;
-  if (g.sums != nullptr)
-    atomicAdd(g.sums + (size_t)(row / hw) * g.ld + c, v);
+  if (g.sums != nullptr)  // slot row % hw of group row / hw: row itself
+    g.sums[(size_t)row * g.ld + c] = v;
   else
     static_cast<T*>(g.dst)[(size_t)row * g.ld + c] = from_f<T>(v);
 }

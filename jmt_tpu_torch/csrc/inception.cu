@@ -30,8 +30,10 @@
 // shared memory, with zero fill giving the SAME padding. Two GEMM
 // launches: the merged 1x1 GEMM (writing b0 and the relu'd branch-a
 // activations to a scratch tensor), then b1b, b2b and b3 as three problems
-// of one grid; avg_tail adds per-(n, t) sums by atomicAdd in the
-// epilogues and a small last pass. The TPU's halo tiles, merged-row layout
+// of one grid; avg_tail's epilogues store per-(n, t) partial sums into
+// slots of their own and a small last pass adds them in a fixed order
+// (implicit_gemm.cuh, avg_slots), so the module is the same bits run to
+// run. The TPU's halo tiles, merged-row layout
 // and H-tile table answered a 16 MB VMEM and XLA fusion seams and are not
 // carried over.
 //
@@ -64,18 +66,24 @@
 
 namespace {
 
-// avg_tail's last pass: out[n, t, c] = (s[n, t, c] + s[n, t+1, c]) * scale.
+// avg_tail's last pass: out[n, t, c] = (s[n, t, c] + s[n, t+1, c]) * scale,
+// where s of a group is the sum of its slots in index order.
 template <typename T>
 __global__ void avg_tail_finish(const float* __restrict__ sums,
                                 T* __restrict__ out, int n, int t, int co,
-                                float scale) {
+                                int slots, float scale) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)n * (t - 1) * co) return;
   const int c = (int)(i % co);
   const size_t r = i / co;
   const size_t tt = r % (t - 1), nn = r / (t - 1);
-  const float* s = sums + (nn * t + tt) * co + c;
-  out[i] = from_f<T>((s[0] + s[co]) * scale);
+  const float* s = sums + (nn * t + tt) * slots * co + c;
+  float s0 = 0.0f, s1 = 0.0f;
+  for (int j = 0; j < slots; ++j) {
+    s0 += s[(size_t)j * co];
+    s1 += s[(size_t)(slots + j) * co];
+  }
+  out[i] = from_f<T>((s0 + s1) * scale);
 }
 
 // b3's pool on the bf16 path, one pass ahead of the GEMMs: dst row r,
@@ -121,6 +129,7 @@ int run(const void* x, void* out, void* scratch, void* pooled, float* sums,
   L.w = w;
   L.pool_kt = pool_kt;
   L.pool_k = pool_k;
+  L.slots = avg_slots(h * w, sizeof(T) == 2);
 
   // 1) merged b0 | b1a | b2a GEMM: b0 to the output, relu(a1) | relu(a2)
   //    to the scratch rows; with pool_in its rows are pooled from the
@@ -185,7 +194,8 @@ int run(const void* x, void* out, void* scratch, void* pooled, float* sums,
   // 3) avg_tail: (s[t] + s[t+1]) / (2 H W)
   const size_t total = (size_t)n * (t - 1) * co;
   avg_tail_finish<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      sums, static_cast<T*>(out), n, t, co, 1.0f / (float)(2 * h * w));
+      sums, static_cast<T*>(out), n, t, co, L.slots,
+      1.0f / (float)(2 * h * w));
   return (int)cudaGetLastError();
 }
 
@@ -199,10 +209,16 @@ extern "C" {
 // module's (pooled) map. out (N, T, H, W, co) rows, or (N, T-1, co) with
 // avg_tail; scratch (N*T*H*W, o1+o3); pooled (N*T*H*W, C) in bf16, twice
 // that with pool_k > 0 in bf16, (N*T*H*W, C) with pool_k > 0 in f32, else
-// null; sums (N*T, co) f32 zeroed, used only with avg_tail (else
+// null; sums (N*T*slots, co) f32 zeroed, slots =
+// jmt_inception_avg_slots(h, w, dtype), used only with avg_tail (else
 // null). Kernels k1 (C, o0+o1+o3), kb1 (27, o1, o2), kb2 (27, o3, o4), k3
 // (C, o5) in the working dtype, biases f32. dtype: 0 = float32,
 // 1 = bfloat16. All tensors contiguous.
+// avg_tail's slots per (n, t) group of an H x W map (avg_slots).
+int jmt_inception_avg_slots(int h, int w, int dtype) {
+  return avg_slots(h * w, dtype == 1);
+}
+
 int jmt_inception_module(const void* x, void* out, void* scratch,
                          void* pooled, void* sums, const void* k1,
                          const void* b1, const void* kb1, const void* bb1,

@@ -10,12 +10,18 @@ The dataset returns RAW uint8 frames and RAW audio: the colour
 augmentation, the normalization and the log-mel front end run on the
 device (``train/loops.preprocess``).
 
-The port reads the CSVs with ``csv`` and imports PIL only inside
-``default_frame_loader``, where an unreadable file is a black frame (the
-reference's behaviour) but a missing PIL raises: a silent fallback would
-train on an all-black dataset. The frame and audio loaders are pluggable,
-so the same dataset serves Affwild2 trees, test fixtures and the synthetic
-source (``data/synthetic.py``).
+The port reads the CSVs with ``csv``. Frames and wavs are decoded by the
+native library (``data/native.py``: libjpeg on a thread pool) when
+``use_native`` resolves on, as JAX resolves it: the default loaders, at
+least two cores available to the process and a library that builds on
+this host; asked for explicitly, a library that does not build raises.
+On a host where only the library's WAV half builds, the wavs are still
+decoded natively. Otherwise the loaders run one file at a time: PIL is imported only
+inside ``default_frame_loader``, where an
+unreadable file is a black frame (the reference's behaviour) but a
+missing PIL raises: a silent fallback would train on an all-black
+dataset. The loaders are pluggable, so the same dataset serves Affwild2
+trees, test fixtures and the synthetic source (``data/synthetic.py``).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from jmt_tpu_torch.data import native
 from jmt_tpu_torch.data import windowing as W
 from jmt_tpu_torch.data.audio_io import load_wav
 from jmt_tpu_torch.ops.mel import AUDIO_SAMPLES
@@ -149,12 +156,36 @@ class WindowedDataset:
                  frame_loader: FrameLoader = default_frame_loader,
                  audio_loader: AudioLoader = load_wav,
                  check_coverage: bool = True, img_size: int = IMG_SIZE,
+                 use_native: Optional[bool] = None,
                  audio_samples: int = AUDIO_SAMPLES):
+        """use_native: True decodes with ``data/native.py`` (built now,
+        or raising with the compiler's output); None resolves as JAX
+        does: on with the default loaders, at least two cores available
+        (the decode pool loses to the one-file loaders on a single core)
+        and a library that builds here. Where only the library's WAV
+        half builds (no libjpeg), None still decodes the wavs natively
+        (``native_wavs``) and the frames with ``frame_loader``; JAX's
+        resolution reads both with its Python loaders then."""
         if split not in ("train", "val", "test"):
             raise ValueError(f"split={split!r}")
         self.split = split
         self.img_size = img_size
         self.audio_samples = int(audio_samples)
+        if use_native is None:
+            try:
+                cores = len(os.sched_getaffinity(0))
+            except (AttributeError, OSError):
+                cores = os.cpu_count() or 1
+            default = (frame_loader is default_frame_loader
+                       and audio_loader is load_wav and cores >= 2)
+            use_native = default and native.available()
+            native_wavs = default and native.available(jpeg=False)
+        else:
+            if use_native:
+                native.load()
+            native_wavs = use_native
+        self.use_native = bool(use_native)
+        self.native_wavs = bool(native_wavs)
         self.records = list(records)
         self.frame_loader = frame_loader
         self.audio_loader = audio_loader
@@ -182,6 +213,7 @@ class WindowedDataset:
         labels_a = np.full((n,), -5.0, np.float32)
         anchors = np.zeros((n,), np.int64)
         wav_paths: List[str] = []
+        frame_slots: List = []  # (clip, frame, path)
         audio_slots: List[int] = []
         for ci, clip in enumerate(win.clips):
             anchors[ci] = clip.anchor
@@ -189,16 +221,30 @@ class WindowedDataset:
             if clip.rows is None:
                 continue  # placeholder: zero frames and audio, -5 labels
             for fi, row in enumerate(clip.rows):
-                img = self.frame_loader(rec.image_paths[row])
-                if img is not None:
-                    clips[ci, fi, :, :, :3] = img[:sz, :sz]
+                frame_slots.append((ci, fi, rec.image_paths[row]))
                 # the last row's labels win
                 labels_v[ci] = rec.labels_v[row]
                 labels_a[ci] = rec.labels_a[row]
             audio_slots.append(ci)
-        for ci in audio_slots:
-            audio[ci] = _fit_audio(self.audio_loader(wav_paths[ci]),
-                                   self.audio_samples)
+        if self.use_native and frame_slots:
+            imgs = native.decode_jpeg_batch([p for _, _, p in frame_slots],
+                                            sz, sz)
+            for k, (ci, fi, _) in enumerate(frame_slots):
+                clips[ci, fi] = imgs[k]
+        else:
+            for ci, fi, path in frame_slots:
+                img = self.frame_loader(path)
+                if img is not None:
+                    clips[ci, fi, :, :, :3] = img[:sz, :sz]
+        if self.native_wavs and frame_slots:
+            wavs = native.decode_wav_batch(
+                [wav_paths[ci] for ci in audio_slots], self.audio_samples)
+            for k, ci in enumerate(audio_slots):
+                audio[ci] = wavs[k]
+        else:
+            for ci in audio_slots:
+                audio[ci] = _fit_audio(self.audio_loader(wav_paths[ci]),
+                                       self.audio_samples)
         if self.split == "test":
             # the test split reuses the previous clip's audio for a
             # near-empty wav (<= 100 samples, so under 1 KB on disk)

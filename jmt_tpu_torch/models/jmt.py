@@ -21,8 +21,8 @@ Counterpart of ``jmt_tpu/models/jmt.py``:
   attend over the BATCH axis, as the reference's seq-first encoders do on
   batch-first tensors: the attention length is the number of batch rows,
   pad rows included, and pad rows change the real rows' outputs. The
-  attention kernel takes at most 128 rows, so a larger batch raises on the
-  card.
+  attention kernel takes any number of rows (past 128 on its long path),
+  as JAX's ``_core_xla`` does.
 * ``FeatureConcatFC``: concat both modalities, Linear(1024 -> 512)
   (``fc``).
 

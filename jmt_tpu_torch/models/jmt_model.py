@@ -177,18 +177,15 @@ class JMTModel(nn.Module):
 
 
 def model_from_config(cfg) -> JMTModel:
-    """The composed model of a ``core.config.Config``. Raises
+    """The composed model of a ``core.config.Config``, with random
+    backbones: the ``init_w_*`` policy loads its pretrained ones later,
+    before the freeze partition (``models/pretrained.apply_pretrained``,
+    run by ``train/runner.Runner.initialize``). Raises
     ``NotImplementedError`` naming the key for what the port leaves out:
-    pretrained backbone init (``init_w_*`` other than RANDOM),
     ``remat_backbones``, a data mesh of more than one card
     (``mesh_data_parallel``), the heavy augmentations
     (``use_more_vision_data_augm`` / ``use_more_audio_data_augm``)."""
     mp = cfg.model_params
-    for key in ("init_w_R2D1", "init_w_ResNet18", "init_w_I3D"):
-        if getattr(mp, key) != "RANDOM":
-            raise NotImplementedError(
-                f"model_params.{key}={getattr(mp, key)!r}: pretrained "
-                "backbone init is not ported yet (RANDOM only)")
     if mp.remat_backbones:
         raise NotImplementedError("model_params.remat_backbones: not "
                                   "ported yet")

@@ -26,10 +26,16 @@ one kernel ``g * v / ||v||`` (norm over the dims other than 2); the
 module keeps and saves the folded ``weight``.
 
 WavLM has no Pallas kernel in the JAX package (``wavlm_apply`` is plain
-XLA), so this is plain PyTorch on the card.
+XLA), so this is plain PyTorch on the card. Its convolutions (the feature
+encoder and the positional conv) run with cuDNN's TF32 off
+(``full_fp32_convs``), whatever the process's flag says: PyTorch's
+default lets cuDNN take f32 convolutions in TF32, which put the features
+about 1e-3 of max |ref| from the CPU's f32 (a chip run's measurement, in
+the repository's PERF.md), where f32 holds them within 1e-5.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -163,6 +169,18 @@ def _hf_layout(module, state_dict, prefix, *_) -> None:
     for key in [k for k in state_dict if k.startswith(head)]:
         state_dict[prefix + key[len(head):]] = state_dict.pop(key)
     state_dict.pop(prefix + "masked_spec_embed", None)
+
+
+@contextlib.contextmanager
+def full_fp32_convs():
+    """cuDNN's TF32 off for the convolutions inside, restored on exit;
+    cuDNN's other flags as the process set them."""
+    cudnn = torch.backends.cudnn
+    saved, cudnn.allow_tf32 = cudnn.allow_tf32, False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = saved
 
 
 class _ConvLayer(nn.Module):
@@ -313,10 +331,11 @@ class WavLMModel(nn.Module):
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = self.feature_extractor(wav).transpose(1, 2)  # (B, T, C)
-        x = self.feature_projection(x)
         enc = self.encoder
-        x = enc.layer_norm(x + enc.pos_conv_embed(x))
+        with full_fp32_convs():
+            x = self.feature_extractor(wav).transpose(1, 2)  # (B, T, C)
+            x = self.feature_projection(x)
+            x = enc.layer_norm(x + enc.pos_conv_embed(x))
         t = x.shape[1]
         buckets = _bucket_index(t, cfg.num_buckets, cfg.max_bucket_distance,
                                 x.device)

@@ -5,8 +5,9 @@ Replaces the TPU kernel ``jmt_tpu/ops/pallas/fused_attention.py``
 independent problems, q pre-scaled, scores and softmax in f32, P cast to
 v's dtype before P·V, P·V accumulated in f32. The source note in
 ``csrc/fused_attention.cu`` says what bounds it on an H100, how the design
-answers that, and why its gate (Lq, Lk <= 128, D <= 512) differs from the
-TPU's ``head_dim <= 256``.
+answers that, and why its gate (any Lq, Lk at D <= 512) differs from the
+TPU's ``L <= 128, head_dim <= 256``: Lq, Lk <= 128 take the short path,
+longer problems a path tiled over query rows with two passes over the keys.
 
 ``fused_attention`` is the dispatcher: a CPU tensor goes to the plain
 version ``attention_plain``; a CUDA tensor goes to the kernel, or the call
@@ -25,7 +26,6 @@ import torch
 
 from jmt_tpu_torch.ops.kernels import build
 
-MAX_L = 128
 MAX_D = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -75,10 +75,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"attention kernel: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree on BH or D")
     lk = k.shape[1]
-    if not (bh >= 1 and 1 <= lq <= MAX_L and 1 <= lk <= MAX_L
-            and 1 <= d <= MAX_D):
-        raise ValueError(f"attention kernel takes BH >= 1, Lq, Lk <= "
-                         f"{MAX_L}, D <= {MAX_D}; got BH={bh}, Lq={lq}, "
+    if not (bh >= 1 and lq >= 1 and lk >= 1 and 1 <= d <= MAX_D):
+        raise ValueError(f"attention kernel takes BH, Lq, Lk >= 1 and "
+                         f"1 <= D <= {MAX_D}; got BH={bh}, Lq={lq}, "
                          f"Lk={lk}, D={d}")
     fn = _kernel_fn()
     out = torch.empty_like(q)

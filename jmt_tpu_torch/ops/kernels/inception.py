@@ -90,9 +90,14 @@ def _launch(x: torch.Tensor, fw: FoldedInception, o: Sequence[int],
     o0, o1, o2, o3, o4, o5 = o
     co = o0 + o2 + o4 + o5
     kw = dict(dtype=x.dtype, device=x.device)
+    lib = build.load("inception")
     if avg_tail:
         out = torch.empty(n, t - 1, co, **kw)
-        sums = torch.zeros(n * t, co, dtype=torch.float32, device=x.device)
+        # a slot per (n, t) group and row block (bf16) or row (f32): the
+        # kernel adds them in a fixed order, so the sums repeat bitwise
+        slots = lib.jmt_inception_avg_slots(h, w, _DTYPES[x.dtype])
+        sums = torch.zeros(n * t * slots, co, dtype=torch.float32,
+                           device=x.device)
     else:
         out = torch.empty((n, co, t, h, w),
                           memory_format=torch.channels_last_3d, **kw)
@@ -102,7 +107,6 @@ def _launch(x: torch.Tensor, fw: FoldedInception, o: Sequence[int],
     n_pooled = bool(pool_k) + (x.dtype == torch.bfloat16)
     pooled = (torch.empty(n_pooled * n * t * h * w, c, **kw) if n_pooled
               else None)
-    lib = build.load("inception")
     fn = lib.jmt_inception_module
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(x.device):

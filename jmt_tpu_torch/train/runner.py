@@ -128,8 +128,18 @@ class Runner:
     # ------------------------------------------------------------------
     def initialize(self) -> None:
         set_global_seed(self.cfg.SEED)
+
+        def pretrained_hook(model):
+            """The init_w_* policy (the reference's main.py:218-302,
+            tsav.py:35-116): pretrained backbones loaded before the freeze
+            partition and the optimizer."""
+            from jmt_tpu_torch.models.pretrained import apply_pretrained
+            for comp, path in apply_pretrained(self.cfg, model).items():
+                self.log.log(f"Loaded pretrained weights [{comp}]: {path}")
+
         self.state = init_state(self.model, self.cfg,
                                 torch.Generator().manual_seed(self.cfg.SEED),
+                                variables_hook=pretrained_hook,
                                 device=self.device)
         self.log.log({
             "trainable_params": param_count(self.model, self.state.trainable),

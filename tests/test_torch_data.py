@@ -197,7 +197,8 @@ def test_file_tree_reads_as_in_jax(tree, split):
         for field in ("labels_v", "labels_a", "frame_ids"):
             np.testing.assert_array_equal(getattr(g, field),
                                           getattr(w, field))
-    got = datasets.WindowedDataset(got_recs, split, check_coverage=False)
+    got = datasets.WindowedDataset(got_recs, split, check_coverage=False,
+                                   use_native=False)
     want = jdatasets.WindowedDataset(want_recs, split, check_coverage=False,
                                      use_native=False)
     assert len(got) == len(want) > 0
@@ -220,7 +221,8 @@ def test_unreadable_frames_are_black_but_a_missing_pil_raises(
     assert img.shape == (112, 112, 3) and img.dtype == np.uint8
     recs = datasets.load_video_records(tree["labels"], tree["wavs"],
                                        tree["ts"])
-    ds = datasets.WindowedDataset(recs, "val", check_coverage=False)
+    ds = datasets.WindowedDataset(recs, "val", check_coverage=False,
+                                  use_native=False)
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(ImportError, match="Pillow"):
         datasets.default_frame_loader(os.path.join(frames, "00052.jpg"))

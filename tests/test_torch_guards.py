@@ -28,8 +28,11 @@ TRAIN_SLICE_MODULES = tuple(f"jmt_tpu_torch.{m}" for m in (
     "train.loops", "eval.stitch", "core.logging", "core.rng",
     "core.preempt", "core.checkpoint", "data.windowing", "data.audio_io",
     "data.datasets", "data.synthetic", "data.loader", "train.runner",
-    "cli", "models.wavlm", "data.wavlm_extract", "serve"))
-# what the card's machine does not install
+    "cli", "models.wavlm", "data.wavlm_extract", "serve",
+    "models.pretrained", "data.native", "data.preprocessing",
+    "tools.jpeg_fixtures"))
+# what the port must not need: packages the card's machine lacks or need
+# not have (it has lacked yaml, pandas and PIL; it has no libjpeg headers)
 ABSENT_THERE = ("yaml", "pandas", "PIL", "flax", "msgpack", "matplotlib",
                 "transformers")
 
@@ -146,6 +149,79 @@ def test_server_runs_without_the_packages_the_card_machine_lacks(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     stats = json.loads(proc.stdout.strip().splitlines()[-1])
     assert stats["buckets"]["1"]["relay"]["p50_ms"] > 0
+
+
+def _files_tree(root, n=481):
+    """A train and a val video of n frames in the Affwild2 layout, made by
+    the port's preprocessing tools: label CSVs from VA txt annotations,
+    realtimestamps, the committed JPEG fixtures as frames (relative paths
+    video/NNNNN.jpg, as the reference's CSVs have them) and short wavs."""
+    import shutil
+    import numpy as np
+    from jmt_tpu_torch.data import audio_io, preprocessing
+    from jmt_tpu_torch.tools import jpeg_fixtures
+    rng = np.random.default_rng(0)
+    os.makedirs(root / "annotations" / "Test_Set")
+    for split, video in (("Train_Set", "vid_a"), ("Val_Set", "vid_b")):
+        txt = root / "txt" / split
+        os.makedirs(txt)
+        (txt / f"{video}.txt").write_text("valence,arousal\n" + "".join(
+            f"{v:.3f},{a:.3f}\n" for v, a in rng.uniform(-1, 1, (n, 2))))
+        preprocessing.convert_va_annotations(str(txt), str(
+            root / "annotations" / split))
+        preprocessing.write_realtimestamps(str(root / "ts"), video, n)
+        os.makedirs(root / "frames" / video)
+        fixtures = jpeg_fixtures.paths()
+        for i in range(1, n + 1):
+            shutil.copyfile(fixtures[i % len(fixtures)],
+                            root / "frames" / video / f"{i:05d}.jpg")
+            audio_io.write_wav(str(root / "wavs" / video / f"{i}.wav"),
+                               0.1 * rng.normal(size=2000))
+    return ["--dataset_annotations", str(root / "annotations"),
+            "--dataset_wavspath", str(root / "wavs"),
+            "--dataset_realtimestamps", str(root / "ts")]
+
+
+def test_files_trainer_runs_without_the_packages_the_card_machine_lacks(
+        tmp_path):
+    """With the same packages blocked: a ResNet-18 PRETRAINING epoch from
+    an Affwild2-layout tree (frames decoded by the native library, which
+    builds into build/) with its backbone initialized from a torchvision
+    IMAGENET file, through ``cli.main`` on the CPU."""
+    import torch
+    from jmt_tpu_torch.models.common import init_parameters
+    from jmt_tpu_torch.models.resnet18 import ResNet18
+    flags = _files_tree(tmp_path / "tree")
+    sd = dict(init_parameters(ResNet18(), torch.Generator().manual_seed(1))
+              .state_dict(), **{"conv1.weight": torch.randn(64, 3, 7, 7),
+                                "fc.weight": torch.randn(1000, 512),
+                                "fc.bias": torch.zeros(1000)})
+    os.makedirs(tmp_path / "weights")
+    torch.save(sd, tmp_path / "weights" / "resnet18-f37072fd.pth")
+    outd = tmp_path / "exps"
+    code = (
+        "import sys\n"
+        "for name in %r: sys.modules[name] = None\n"
+        "from jmt_tpu_torch import cli\n"
+        "assert cli.main(['--config', %r, '--l_vision_backbones', 'None', "
+        "'--l_audio_backbones', 'ResNet18', '--goal', 'PRETRAINING', "
+        "'--compute_dtype', 'float32', '--init_w_ResNet18', 'IMAGENET', "
+        "'--pretrained_weights_dir', %r, '--train_params__batch_size', "
+        "'16', '--val_params__batch_size', '16', '--max_epochs', '1', "
+        "'--verbose', 'False', '--device', 'cpu', '--outd', %r] + %r) == 0\n"
+        "bad = [m for m in ('jax', 'jmt_tpu', 'PIL') if m in sys.modules "
+        "and sys.modules[m] is not None]\n"
+        "sys.exit(1 if bad else 0)\n"
+        % (ABSENT_THERE, str(ROOT / "config.json"),
+           str(tmp_path / "weights"), str(outd), flags))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code],
+                          cwd=tmp_path / "tree" / "frames", env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert (outd / "id_exp" / "passed.txt").is_file()
+    log = (outd / "id_exp" / "log.json").read_text()
+    assert "Loaded pretrained weights [audio_resnet18]" in log
 
 
 def test_serving_entry_points_default_to_the_card(tmp_path, monkeypatch):

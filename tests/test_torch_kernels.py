@@ -348,11 +348,14 @@ def test_attention_cpu_dispatch_uses_plain_and_does_not_count():
                                    (64, 16, 16, 64), (4, 16, 128, 64),
                                    (4, 128, 128, 512), (4, 1, 1, 512),
                                    (3, 1, 7, 64), (2, 5, 3, 20),
-                                   "unaligned"])
+                                   (1, 129, 129, 512), (4, 300, 300, 512),
+                                   (2, 17, 300, 512), (2, 300, 17, 512),
+                                   (1, 257, 257, 20), "unaligned"])
 def test_attention_kernel_matches_plain_on_card(shape, dtype, atol,
                                                 cuda_device):
-    """The served shapes and the gate's edges; D = 20 and a q that starts
-    2 bytes past a 16-byte boundary take the scalar staging."""
+    """The served shapes, the short path's edges and the long path (Lq or
+    Lk > 128); D = 20 and a q that starts 2 bytes past a 16-byte boundary
+    take the scalar staging."""
     unaligned = shape == "unaligned"
     if unaligned:
         shape = (8, 16, 16, 512)
@@ -403,32 +406,40 @@ def test_attention_kernel_raises_on_inputs_it_does_not_take(cuda_device):
         fa.fused_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
         fa.fused_attention(q.transpose(1, 2), k, v)
-    big = torch.zeros(1, 129, 64, device=cuda_device)
+    empty = torch.zeros(1, 0, 64, device=cuda_device)
     with pytest.raises(ValueError):
-        fa.fused_attention(big, big, big)
+        fa.fused_attention(empty, empty, empty)
     wide = torch.zeros(1, 4, 1024, device=cuda_device)
     with pytest.raises(ValueError):
         fa.fused_attention(wide, wide, wide)
 
 
 @pytest.mark.cuda
-def test_no_jr_fusion_over_more_than_128_rows_raises_on_the_card(
-        cuda_device):
+def test_no_jr_fusion_over_more_than_128_rows_on_the_card(cuda_device):
     """``MultimodalTransformerNoJR`` attends over the batch axis (its
-    quirk), so the attention length is the number of rows: past K2's 128
-    the card raises at the kernel's wrapper instead of falling back."""
+    quirk), so the attention length is the number of rows: past 128 the
+    card runs K2's long path, as JAX runs ``_core_xla``; the fusion over
+    129 and 300 rows on the card against the same module on the CPU (the
+    plain attention), f32 within 1e-4, 4 K2 launches a forward."""
     from jmt_tpu_torch.models.jmt import MultimodalTransformerNoJR
     from jmt_tpu_torch.models.common import init_parameters
-    fusion = init_parameters(MultimodalTransformerNoJR(),
-                             torch.Generator().manual_seed(0)).to(cuda_device)
-    for rows, ok in ((128, True), (129, False)):
-        x = torch.randn(rows, 2, 512, device=cuda_device)
+    cpu = init_parameters(MultimodalTransformerNoJR(),
+                          torch.Generator().manual_seed(0))
+    fusion = MultimodalTransformerNoJR()
+    fusion.load_state_dict(cpu.state_dict())
+    fusion.to(cuda_device)
+    rng = np.random.default_rng(8)
+    for rows in (129, 300):
+        x, y = (torch.from_numpy(rng.normal(size=(rows, 2, 512)).astype(
+            np.float32)) for _ in range(2))
+        before = fa.fused_attention.launches
         with torch.inference_mode():
-            if ok:
-                assert fusion(x, x).shape == (rows, 2, 512)
-            else:
-                with pytest.raises(ValueError, match="Lq, Lk <= 128"):
-                    fusion(x, x)
+            got = fusion(x.to(cuda_device), y.to(cuda_device))
+            torch.cuda.synchronize()
+            want = cpu(x, y)
+        assert fa.fused_attention.launches == before + 4
+        assert got.shape == (rows, 2, 512)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
 
 
 def _bf16(x: np.ndarray) -> np.ndarray:
@@ -442,12 +453,41 @@ def _fma32(a, b, c):
     return (a.astype(np.float64) * b + c).astype(np.float32)
 
 
+def _tile_sum16(x: np.ndarray) -> np.ndarray:
+    """The sum over the last axis (16) as the kernel's xor shuffles
+    (offsets 8, 4, 2, 1) add it, in f32."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = (x[..., :half] + x[..., half:]).astype(np.float32)
+    return x[..., 0]
+
+
+def _long_softmax(scores: np.ndarray) -> np.ndarray:
+    """The long path's softmax: pass one over key tiles of 16 keeps each
+    row's running max m and sum l of exp(s - m), rescaled when m grows;
+    pass two P = exp(s - m) / l, all in f32."""
+    lk = scores.shape[-1]
+    pad = np.full(scores.shape[:-1] + (-(-lk // 16) * 16 - lk,), -np.inf,
+                  np.float32)
+    s = np.concatenate([scores, pad], axis=-1)
+    m = np.full(scores.shape[:-1], -np.inf, np.float32)
+    l = np.zeros(scores.shape[:-1], np.float32)
+    for j0 in range(0, lk, 16):
+        tile = s[..., j0:j0 + 16]
+        mn = np.maximum(m, tile.max(-1))
+        e = np.exp(tile - mn[..., None]).astype(np.float32)
+        l = (l * np.exp(m - mn) + _tile_sum16(e)).astype(np.float32)
+        m = mn
+    return (np.exp(scores - m[..., None]) / l[..., None]).astype(np.float32)
+
+
 def _emulate_attention_kernel(q, k, v, bf16: bool) -> np.ndarray:
     """csrc/fused_attention.cu in numpy float32: the 8 warps' D ranges
     (dw = round_up(ceil(round_up(D, V) / 8), V), V = 16 bytes of the
     dtype), each an FMA chain over its range, the partials added in warp
-    order; softmax in f32 with max subtraction, P rounded to v's dtype;
-    P.V an FMA chain over j in order, rounded to v's dtype."""
+    order; softmax in f32 with max subtraction (past 128 rows the long
+    path's two passes, ``_long_softmax``), P rounded to v's dtype; P.V an
+    FMA chain over j in order, rounded to v's dtype."""
     bh, lq, d = q.shape
     vec = 8 if bf16 else 4
     dr = -(-d // vec) * vec
@@ -458,8 +498,11 @@ def _emulate_attention_kernel(q, k, v, bf16: bool) -> np.ndarray:
         for e in range(w * dw, min(d, (w + 1) * dw)):
             part = _fma32(q[:, :, e, None], k[:, None, :, e], part)
         scores = scores + part
-    e = np.exp(scores - scores.max(-1, keepdims=True))
-    p = e / e.sum(-1, keepdims=True, dtype=np.float32)
+    if max(lq, k.shape[1]) > 128:
+        p = _long_softmax(scores)
+    else:
+        e = np.exp(scores - scores.max(-1, keepdims=True))
+        p = e / e.sum(-1, keepdims=True, dtype=np.float32)
     p = _bf16(p) if bf16 else p.astype(np.float32)
     out = np.zeros((bh, lq, d), np.float32)
     for j in range(k.shape[1]):
@@ -467,12 +510,14 @@ def _emulate_attention_kernel(q, k, v, bf16: bool) -> np.ndarray:
     return _bf16(out) if bf16 else out
 
 
-# the four served shapes (BH, Lq, Lk, D) and the gate's edges: L = 1,
-# Lq != Lk, L = 128, D = 64, a D that is no multiple of 16 bytes
+# the four served shapes (BH, Lq, Lk, D) and the short path's edges:
+# L = 1, Lq != Lk, L = 128, D = 64, a D that is no multiple of 16 bytes;
+# then the long path: L = 129, ragged Lq or Lk past 128, D = 64 and 20
 _ATTN_EMULATED = ((128, 2, 2, 512), (8, 16, 16, 512), (16, 16, 16, 512),
                   (128, 6, 6, 512), (4, 1, 1, 512), (3, 1, 7, 64),
                   (4, 16, 128, 64), (2, 128, 128, 512), (64, 16, 16, 64),
-                  (2, 5, 3, 20))
+                  (2, 5, 3, 20), (1, 129, 129, 512), (2, 300, 17, 512),
+                  (1, 17, 300, 64), (1, 257, 257, 20))
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
@@ -516,7 +561,7 @@ _ATTN_REFUSED = (
     ("rank", ValueError, (_Q[0], _Q[0], _Q[0])),
     ("k != v", ValueError, (_Q, _Q, _Q[:, :3])),
     ("bh", ValueError, (_Q, _Q[:1], _Q[:1])),
-    ("long", ValueError, (torch.zeros(1, 129, 64),) * 3),
+    ("lq0", ValueError, (torch.zeros(1, 0, 64),) * 3),
     ("wide", ValueError, (torch.zeros(1, 4, 1024),) * 3))
 
 
@@ -781,6 +826,62 @@ def test_inception_sm90_tiling_matches_plain(name, shape, pool_in,
                                     sm90=True)
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+
+
+def _avg_slots(hw: int, bf16: bool) -> int:
+    """implicit_gemm.cuh's ``avg_slots``: avg_tail's slots per (n, t)
+    group of hw rows, one per 16-row block (bf16) or row (f32)."""
+    return (hw + 14) // 16 + 1 if bf16 else hw
+
+
+@pytest.mark.parametrize("n,t,hw", [(128, 2, 49), (1, 2, 9), (3, 5, 16),
+                                    (2, 3, 17), (4, 2, 1), (2, 2, 784)])
+def test_inception_avg_tail_slots_have_one_writer(n, t, hw):
+    """avg_tail's fixed-order sums. The bf16 epilogue's warp of row block
+    rw / 16 stores its sum over group gi's rows into slot
+    rw / 16 - gi hw / 16 of gi: every slot lies below ``_avg_slots``, each
+    (group, slot) belongs to one row block (one writer, no atomics), and
+    a group's slot sums added in index order in f32 (the last pass) give
+    the group's f64 sum within f32 rounding. The f32 epilogue's slot is
+    the row's place in its group."""
+    rows = n * t * hw
+    row = np.arange(rows)
+    block, group = row // 16, row // hw
+    slot = block - group * hw // 16
+    assert slot.min() >= 0 and slot.max() < _avg_slots(hw, True)
+    owner = {}
+    for key in zip(group.tolist(), slot.tolist(), block.tolist()):
+        assert owner.setdefault(key[:2], key[2]) == key[2]
+    assert (row - group * hw).max() < _avg_slots(hw, False)
+    x = np.random.default_rng(3).random(rows).astype(np.float32)
+    slots = np.zeros((n * t, _avg_slots(hw, True)), np.float32)
+    np.add.at(slots, (group, slot), x)
+    total = np.zeros(n * t, np.float32)
+    for j in range(slots.shape[1]):
+        total = (total + slots[:, j]).astype(np.float32)
+    want = np.bincount(group, x.astype(np.float64))
+    np.testing.assert_allclose(total, want, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_inception_avg_tail_repeats_bitwise_on_card(dtype, cuda_device,
+                                                    no_tf32):
+    """K3's Mixed_5c launch (avg_tail) at its real shape, 16 clips, T 2:
+    20 repeats equal the first bit for bit (the slots are added in a
+    fixed order), and the first is within the kernel's tolerance of the
+    plain version."""
+    c, spec = _MIXED["Mixed_5c"]
+    x = _relu_input(16, c, 2, 7, 7, seed=9).to(cuda_device, dtype)
+    fw = inception.FoldedInception(
+        *(a.to(cuda_device) for a in _folded(c, spec, dtype, seed=10)))
+    first = k3.inception_module_fused(x, fw, spec, avg_tail=True)
+    for _ in range(20):
+        assert torch.equal(k3.inception_module_fused(x, fw, spec,
+                                                     avg_tail=True), first)
+    want = inception.inception_plain(x, fw, spec, avg_tail=True).float()
+    tol = 5e-5 if dtype == torch.float32 else 1e-2
+    assert (first.float() - want).abs().max() <= tol * want.abs().max()
 
 
 def test_inception_cpu_dispatch_uses_plain_and_does_not_count():

@@ -94,6 +94,15 @@ def test_no_jr_attends_over_the_batch_axis():
            v, a)
 
 
+@pytest.mark.parametrize("rows", [129, 200])
+def test_no_jr_over_more_than_128_rows(rows):
+    """Past 128 batch rows the quirk's attention is longer than the TPU
+    kernel's gate: JAX runs ``_core_xla``, the port K2's plain version on
+    the CPU (its long path on the card); the fusion agrees at ATOL."""
+    _check(jjmt.MultimodalTransformerNoJR(), jmt.MultimodalTransformerNoJR(),
+           _x(rows, 2, 512, seed=2), _x(rows, 2, 512, seed=3))
+
+
 def test_feature_concat_fc():
     _check(jjmt.FeatureConcatFC(), jmt.FeatureConcatFC(), _x(2, 4, 512),
            _x(2, 4, 512, seed=1))
@@ -269,6 +278,10 @@ def test_invalid_lattices_are_rejected_on_both_sides(bad):
     ("train_params.use_more_vision_data_augm", True),
     ("val_params.use_more_audio_data_augm", True)])
 def test_unported_keys_raise(key, value):
+    """What the port leaves out raises ``NotImplementedError`` naming
+    the key. ``init_w_*`` is ported (``models/pretrained.py``): the model
+    builds with random backbones, and loading the pretrained ones raises
+    without a weights directory, as in JAX."""
     extra = {}
     if key.startswith(("train_params", "val_params")):
         split, k = key.split(".")
@@ -277,6 +290,13 @@ def test_unported_keys_raise(key, value):
         extra[key] = value
     else:
         extra["mp"] = {key: value}
-    cfg = _config(("R2D1",), ("ResNet18",), **extra)
+    vision = ("I3D",) if key == "init_w_I3D" else ("R2D1",)
+    cfg = _config(vision, ("ResNet18",), **extra)
+    if key.startswith("init_w_"):
+        from jmt_tpu_torch.models.pretrained import apply_pretrained
+        model = model_from_config(cfg)
+        with pytest.raises(ValueError, match="pretrained_weights_dir"):
+            apply_pretrained(cfg, model)
+        return
     with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
         model_from_config(cfg)
