@@ -7,7 +7,7 @@ Phases, each printing one JSON record per line with its seconds; any
 failure raises and the script exits non-zero:
 
 1. device and build: the card's name and power limit, nvcc build seconds
-   of the four kernel sources, their ptxas lines and registers per kernel;
+   of the five kernel sources, their ptxas lines and registers per kernel;
 2. kernels against their plain PyTorch versions on the card (TF32 off):
    log-mel at N=16 and 128 (f32, atol 5e-5; CUDA-events and device-only
    times of K1 and of torch.stft + a mel GEMM, K1's device operations per
@@ -26,7 +26,15 @@ failure raises and the script exits non-zero:
    MaxPool3d_3a, 4a, 5a), the same tolerances, timed beside the port's
    unfused module and the K3 launch without ``pool_in``, each after
    ``max_pool_same``. Each with the times of kernel, plain version and
-   library yardstick (CUDA events), and the bound;
+   library yardstick (CUDA events), and the bound. int8: every distinct
+   eligible conv of the flagship at bucket 8 (bf16, inception unfused: 110
+   convs, 77 shapes), recorded in a calibration forward, through K5 on
+   random s8 operands, its s32 sums and bf16 output bitwise equal to the
+   plain version's (a float64 conv), timed beside the plain version,
+   cuDNN's bf16 conv and, on the 1 x 1 stride-1 shapes, torch._int_mm
+   (held to K5's sums); K6 at each conv's input, bitwise (q and s,
+   dynamic and static) in its dtype and layout, at four shapes also in
+   f32 and the other layout; per-family sums;
 3. the flagship server (the main path): R2D1 MAX + I3D+TCN (112 -> 224 fold)
    with encoder_plus_self_attention, ResNet18 & wavLM with
    encoder_plus_self_attention, JMT SELF_ATTEN, 1 head, 1 layer, at full
@@ -59,6 +67,20 @@ failure raises and the script exits non-zero:
    operations per call, asserted to be one; the
    Mixed_4b..4f chain with 4 K4 launches a forward (asserted) and with
    cuDNN alone;
+7b. int8 (``phase_int8``): the flagship, seed-0 bf16 weights, inception
+   unfused then fused: a graphed bf16 server and a graphed dynamic int8
+   server at buckets 1 and 8, then ``calibrate`` on the bucket-1 request
+   to static. Per graphed forward 110 (fused: 74) K5 and K6 launches,
+   asserted, as is the count of scales; V/A drift of each mode from bf16
+   under ``FLAGSHIP_VA_ABS_BOUND``; replays equal to the eager forward
+   bitwise; static given the scales a dynamic forward used equals that
+   forward bitwise (static with the calibrated scales differs from
+   dynamic from the second conv on: calibration runs the float forward,
+   as JAX's); replay ms per bucket and mode, CUDA events. Unfused, at
+   each bucket: a torch.profiler trace of the bf16 and the static replay
+   (device ms split into K5, K6 and the rest by kernel name) and of the
+   eager static forward, with ranges around the weight quantize and the
+   K5 calls (the device ms of the per-conv weight quantize and re-layout);
 8. card against CPU: the flagship, flag on, one seq-4 request, card f32
    (kernels in a CUDA graph, TF32 off) against CPU f32 (plain versions),
    V/A max abs delta
@@ -106,7 +128,9 @@ failure raises and the script exits non-zero:
    (the process's flags, its convs with TF32 off) against CPU f32 within
    1e-4 of max |ref|, beside it the same with cuDNN's TF32 convs (error
    and device ms), its host resample and device ms apart; raw-audio
-   requests and their p50 at buckets 1 and 8;
+   requests and their p50 at buckets 1 and 8; then ``python -m
+   jmt_tpu_torch.serve --int8`` and ``--int8-static`` on the directory
+   at bucket 1 (in this process): latencies and launches;
    ``WavLMExtractor.per_frame`` over a 30 s wav (900 frames) against the
    CPU's in f32 (1e-4 of max |ref|); a
    ``StreamingSession`` over two synthetic videos against the stitched,
@@ -156,6 +180,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -177,7 +202,8 @@ FLAGSHIP_CONFIG = dict(SLICE_CONFIG, vision_backbones=("R2D1", "I3D"),
 # kernel launches per forward of each path (inception_pool_in: the K3
 # launches among inception_module_fused's that took pool_in)
 _NONE = {"log_mel": 0, "fused_attention": 0, "inception_module_fused": 0,
-         "inception_pool_in": 0, "pool3_1x1": 0}
+         "inception_pool_in": 0, "pool3_1x1": 0, "int8_conv": 0,
+         "quantize_act": 0}
 PER_FORWARD = {"flagship": dict(_NONE, log_mel=1, fused_attention=12,
                                 inception_module_fused=9),
                "flagship_flag_off": dict(_NONE, log_mel=1,
@@ -955,6 +981,517 @@ def phase_pool1x1(registers: dict) -> dict:
             "launches": launches["pool3_1x1"]}
 
 
+INT8_PEAK_OPS = 1979e12     # H100 SXM int8 dense tensor peak
+# eligible convs of the flagship (bf16, 112 px, the stem folded): inception
+# unfused (STATUS.md:110 records 110 scales) and fused (K3 stays bf16 under
+# int8, as JAX's fused module never consults the context: 110 - 9 x 4)
+INT8_SCALES = {False: 110, True: 74}
+K5_SOURCE = "jmt_tpu_torch/csrc/int8_conv.cu"
+
+
+def _norm3(v, nd: int, fill) -> tuple:
+    v = (v,) * nd if isinstance(v, int) else tuple(v)
+    return (fill,) * (3 - nd) + v
+
+
+def record_int8_convs(model, req) -> list:
+    """Each eligible conv of one calibration forward of ``model`` on
+    ``req`` (device tensors), in order: its x's shape, dtype and whether x
+    is in channels-last memory, the weight's shape, and stride, dilation and
+    pads as 3-D tuples."""
+    from jmt_tpu_torch.ops import quant
+    from jmt_tpu_torch.train.loops import calibration_forward
+    calls, original = [], quant.int8_conv
+
+    def spy(x, weight, stride, pads, dilation, float_conv):
+        nd = x.ndim - 2
+        pd = ((0, 0),) * nd if pads is None else tuple(map(tuple, pads))
+        calls.append({
+            "x": tuple(x.shape), "dtype": x.dtype,
+            "channels_last": x.is_contiguous(
+                memory_format=torch.channels_last_3d if nd == 3
+                else torch.channels_last) if nd >= 2 else False,
+            "w": tuple(weight.shape), "stride": _norm3(stride, nd, 1),
+            "dilation": _norm3(dilation, nd, 1),
+            "pads": ((0, 0),) * (3 - nd) + pd})
+        return original(x, weight, stride, pads, dilation, float_conv)
+
+    quant.int8_conv = spy
+    try:
+        maxes = calibration_forward(model, req)
+    finally:
+        quant.int8_conv = original
+    if len(calls) != maxes.numel():
+        raise AssertionError(f"{len(calls)} recorded convs, {maxes.numel()} "
+                             f"maxes")
+    return calls
+
+
+def _key(c: dict) -> tuple:
+    return (c["x"], c["w"], c["stride"], c["dilation"], c["pads"])
+
+
+def _as5(shape) -> tuple:
+    return tuple(shape[:2]) + (1,) * (5 - len(shape)) + tuple(shape[2:])
+
+
+def int8_family(c: dict) -> str:
+    """A conv's shape family, for PERF.md's breakdown."""
+    k = _as5(c["w"])[2:]
+    cin = c["w"][1]
+    if len(c["w"]) == 3:
+        return "tcn_1x1" if k[2] == 1 else "tcn_k5_dilated"
+    if len(c["w"]) == 4:
+        return "resnet_1x1" if k == (1, 1, 1) else "resnet_3x3"
+    if cin <= 3:
+        return "i3d_stem_fold"
+    if k == (1, 1, 1):
+        return "r2p1d_downsample" if c["stride"] != (1, 1, 1) else "i3d_1x1"
+    if k == (3, 3, 3):
+        return "i3d_3x3x3"
+    return {(1, 3, 3): "r2p1d_spatial", (3, 1, 1): "r2p1d_temporal"}.get(
+        k, f"other_{k}")
+
+
+def int8_operands(c: dict, gen: torch.Generator):
+    """Random s8 x (K6's layout) and w, a device s_x, s_w at a recorded
+    conv's shapes."""
+    x5 = torch.randint(-127, 128, _as5(c["x"]), generator=gen,
+                       dtype=torch.int8, device="cuda")
+    x_q = x5.contiguous(memory_format=torch.channels_last_3d).reshape(c["x"])
+    w_q = torch.randint(-127, 128, c["w"], generator=gen, dtype=torch.int8,
+                        device="cuda")
+    s_w = torch.rand(c["w"][0], generator=gen, device="cuda") * 1e-2 + 1e-4
+    return x_q, w_q, torch.tensor(0.0173, device="cuda"), s_w
+
+
+def _geom(c: dict) -> tuple:
+    """stride, dilation, pads in the conv's own rank."""
+    nd = len(c["x"]) - 2
+    return (c["stride"][3 - nd:], c["dilation"][3 - nd:], c["pads"][3 - nd:])
+
+
+def k5_check(c: dict, n: int, gen: torch.Generator) -> dict:
+    """K5 at one recorded shape: its s32 sums and bf16 output against the
+    plain version's (float64 conv), bitwise; K5, plain, bound, and as
+    context cuDNN's bf16 conv and (1 x 1, stride 1) torch._int_mm, by CUDA
+    events; ``n`` calls of this shape a forward."""
+    from jmt_tpu_torch.ops.conv import conv_nd
+    from jmt_tpu_torch.ops.kernels import int8_conv as k5
+    x_q, w_q, s_x, s_w = int8_operands(c, gen)
+    stride, dil, pads = _geom(c)
+    y, acc = k5.int8_conv(x_q, w_q, s_x, s_w, stride, dil, pads,
+                          torch.bfloat16, return_acc=True)
+    want_acc = k5.int8_acc_plain(x_q, w_q, stride, dil, pads)
+    want = k5.dequantize(want_acc, s_x, s_w, torch.bfloat16)
+    torch.cuda.synchronize()
+    if not (torch.equal(acc, want_acc) and torch.equal(y, want)):
+        raise AssertionError(
+            f"int8_conv kernel {_key(c)}: sums off by "
+            f"{(acc.double() - want_acc.double()).abs().max().item()}, "
+            f"output by {(y.float() - want.float()).abs().max().item()}")
+    ms = time_ms(lambda: k5.int8_conv(x_q, w_q, s_x, s_w, stride, dil, pads,
+                                      torch.bfloat16), iters=10, warmup=2)
+    plain_ms = time_ms(lambda: k5.int8_conv_plain(
+        x_q, w_q, s_x, s_w, stride, dil, pads, torch.bfloat16),
+        iters=1, warmup=1)
+    xb = x_q.to(torch.bfloat16)
+    wb = w_q.to(torch.bfloat16)
+    cudnn_ms = time_ms(lambda: conv_nd(xb, wb, stride, pads, dil),
+                       iters=10, warmup=2)
+    int_mm_ms = None
+    m = y.numel() // y.shape[1]
+    if (math.prod(c["w"][2:]) == 1 and set(stride) == {1} and m > 16
+            and c["w"][1] % 8 == 0 and c["w"][0] % 8 == 0):
+        a = x_q.reshape(_as5(c["x"])).permute(0, 2, 3, 4, 1).reshape(
+            m, c["w"][1])
+        b = w_q.reshape(c["w"][0], c["w"][1]).t()
+        if not torch.equal(torch._int_mm(a, b).reshape(
+                y.shape[0], *y.shape[2:], y.shape[1]).movedim(-1, 1),
+                acc):
+            raise AssertionError(f"torch._int_mm against K5's sums at "
+                                 f"{_key(c)}")
+        int_mm_ms = time_ms(lambda: torch._int_mm(a, b), iters=10, warmup=2)
+    ops = 2.0 * m * c["w"][0] * math.prod(c["w"][1:])
+    n_bytes = x_q.numel() + w_q.numel() + 2.0 * y.numel()
+    b_ms, b_by = bound(n_bytes, ops, INT8_PEAK_OPS)
+    return {"family": int8_family(c), "x": list(c["x"]), "w": list(c["w"]),
+            "stride": list(stride), "dilation": list(dil),
+            "pads": [list(p) for p in pads], "calls_a_forward": n,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "cudnn_bf16_conv_ms": cudnn_ms,
+            "int_mm_ms": int_mm_ms, "tops": ops / ms / 1e9,
+            "max_abs_err": 0.0}
+
+
+def k6_check(c: dict, n: int, gen: torch.Generator,
+             variants: bool) -> dict:
+    """K6 at one recorded conv input: bitwise against its plain version
+    (q and s, dynamic and static) in the recorded dtype and layout, and
+    with ``variants`` also in f32 and in the other layout; timed in the
+    recorded form beside the plain version."""
+    from jmt_tpu_torch.ops.kernels import int8_conv as k5
+    nd = len(c["x"]) - 2
+    cl = torch.channels_last_3d if nd == 3 else torch.channels_last
+    base = 3 * torch.randn(c["x"], generator=gen, device="cuda")
+    forms = [(c["dtype"], c["channels_last"])]
+    if variants:
+        forms += [(torch.float32, c["channels_last"]),
+                  (c["dtype"], not c["channels_last"])]
+    for dtype, chl in forms:
+        x = base.to(dtype)
+        if nd >= 2:
+            x = x.contiguous(memory_format=cl if chl else
+                             torch.contiguous_format)
+        for scale in (None, 0.0251):
+            q, s = k5.quantize_act(x, scale)
+            want_q, want_s = k5.quantize_act_plain(x, scale)
+            torch.cuda.synchronize()
+            same_s = (s == scale if scale is not None
+                      else bool(torch.equal(s, want_s)))
+            if not (torch.equal(q, want_q) and same_s):
+                raise AssertionError(f"quantize_act kernel {c['x']} {dtype} "
+                                     f"channels_last={chl} scale={scale}")
+    x = base.to(c["dtype"])
+    if nd >= 2 and c["channels_last"]:
+        x = x.contiguous(memory_format=cl)
+    ms = time_ms(lambda: k5.quantize_act(x), iters=10, warmup=2)
+    plain_ms = time_ms(lambda: k5.quantize_act_plain(x), iters=3, warmup=1)
+    b_ms, b_by = bound(x.numel() * (x.element_size() + 1), 2.0 * x.numel(),
+                       F32_PEAK_FLOPS)
+    return {"x": list(c["x"]), "dtype": str(c["dtype"]).split(".")[-1],
+            "channels_last": c["channels_last"], "calls_a_forward": n,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": 0.0}
+
+
+def check_int8(registers: dict) -> tuple:
+    """K5 and K6 at every distinct eligible conv of the flagship at bucket
+    8 (bf16, inception unfused), recorded in a calibration forward; the
+    records summed over one forward's calls."""
+    from jmt_tpu_torch.train.loops import _on
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model = make_model(FLAGSHIP_CONFIG, torch.bfloat16,
+                       i3d_fused_inception=False).cuda()
+    req = dict(zip(REQUEST_KEYS, request(np.random.default_rng(7), 8, 16)))
+    calls = record_int8_convs(model, _on(req, torch.device("cuda")))
+    del model
+    torch.cuda.empty_cache()
+    if len(calls) != INT8_SCALES[False]:
+        raise AssertionError(f"{len(calls)} eligible convs, expected "
+                             f"{INT8_SCALES[False]}")
+    counts, firsts = {}, {}
+    for c in calls:
+        counts[_key(c)] = counts.get(_key(c), 0) + 1
+        firsts.setdefault(_key(c), c)
+    k5_rows, k6_rows = [], []
+    for i, (key, c) in enumerate(firsts.items()):
+        k5_rows.append(k5_check(c, counts[key], gen))
+        k6_rows.append(k6_check(c, counts[key], gen, variants=i < 4))
+        torch.cuda.empty_cache()
+    for row in k5_rows:
+        emit({"phase": "kernel", "kernel": "int8_conv", **row})
+    for row in k6_rows:
+        emit({"phase": "kernel", "kernel": "quantize_act", **row})
+
+    def total(rows, key):
+        vals = [r[key] for r in rows]
+        if any(v is None for v in vals):
+            return None
+        return sum(v * r["calls_a_forward"] for v, r in zip(vals, rows))
+
+    families = {}
+    for r in k5_rows:
+        f = families.setdefault(r["family"], {"calls_a_forward": 0, "ms": 0.0,
+                                              "plain_ms": 0.0,
+                                              "bound_ms": 0.0,
+                                              "cudnn_bf16_conv_ms": 0.0})
+        f["calls_a_forward"] += r["calls_a_forward"]
+        for k in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_conv_ms"):
+            f[k] += r[k] * r["calls_a_forward"]
+    mm = [r for r in k5_rows if r["int_mm_ms"] is not None]
+    emit({"phase": "int8_families", "bucket": 8, "families": families,
+          "int_mm_shapes": {"calls_a_forward": sum(r["calls_a_forward"]
+                                                   for r in mm),
+                            "k5_ms": total(mm, "ms"),
+                            "int_mm_ms": total(mm, "int_mm_ms")}})
+    timing = ("bucket 8 of the flagship (bf16, inception unfused): every "
+              "eligible conv's shape, random s8 operands, CUDA events, "
+              "summed over one forward's calls")
+    k5_rec = {"name": "int8_conv", "route": "cuda", "source": K5_SOURCE,
+              "replaces": "none: jmt_tpu/ops/quant.py:159 is XLA's s8 conv, "
+                          "not a Pallas kernel",
+              "dtype": "int8 -> bfloat16", "timing": timing,
+              "max_abs_err": 0.0, "distinct_shapes": len(k5_rows),
+              "calls_a_forward": len(calls),
+              "ms": total(k5_rows, "ms"),
+              "plain_ms": total(k5_rows, "plain_ms"),
+              "bound_ms": total(k5_rows, "bound_ms"),
+              "bound_by": max(("operations", "bytes"), key=lambda by: sum(
+                  r["bound_ms"] * r["calls_a_forward"] for r in k5_rows
+                  if r["bound_by"] == by)),
+              "library_ms": None,
+              "library_note": "no one PyTorch call computes an s8 conv; "
+                              "torch._int_mm on the 1x1 stride-1 shapes and "
+                              "cuDNN's bf16 conv (another function) in "
+                              "int8_families",
+              "int_mm_1x1_ms": total(mm, "int_mm_ms"),
+              "k5_1x1_ms": total(mm, "ms"),
+              "cudnn_bf16_conv_ms": total(k5_rows, "cudnn_bf16_conv_ms"),
+              "registers": registers.get("int8_conv")}
+    k6_rec = {"name": "quantize_act", "route": "cuda", "source": K5_SOURCE,
+              "replaces": "none: jmt_tpu/ops/quant.py:114 is XLA's "
+                          "elementwise quantize, not a Pallas kernel",
+              "dtype": "bfloat16 -> int8", "timing": timing,
+              "max_abs_err": 0.0, "calls_a_forward": len(calls),
+              "ms": total(k6_rows, "ms"),
+              "plain_ms": total(k6_rows, "plain_ms"),
+              "bound_ms": total(k6_rows, "bound_ms"), "bound_by": "bytes",
+              "library_ms": None}
+    return k5_rec, k6_rec
+
+
+INT8_FORWARD = {False: dict(_NONE, log_mel=1, fused_attention=12),
+                True: dict(_NONE, log_mel=1, fused_attention=12,
+                           inception_module_fused=9)}
+
+
+def replay_ms(server) -> dict:
+    """Each bucket's graph replay, CUDA events."""
+    return {str(b): time_ms(g.replay, iters=10, warmup=2)
+            for b, g in server.graphs.items()}
+
+
+def int8_expect(path: str, server, n: int, fused: bool) -> dict:
+    """Each bucket's capture holds one forward's launches, K5 and K6
+    ``n`` times in int8; the bucket-8 graph's launches."""
+    want = dict(INT8_FORWARD[fused], int8_conv=n, quantize_act=n)
+    for b, graph in server.graphs.items():
+        emit({"phase": "capture", "path": path, "bucket": b,
+              "seconds": graph.seconds, **graph.launches})
+        if graph.launches != want:
+            raise AssertionError(f"{path} bucket {b}: {graph.launches}, "
+                                 f"expected {want}")
+    return server.graphs[8].launches
+
+
+def dynamic_forward_scales(model, arrays) -> tuple:
+    """One eager dynamic int8 forward of ``model`` on ``arrays`` (on the
+    card) and the activation scale each conv used (0-d device tensors),
+    read by wrapping K6's launch (the dispatcher keeps its name, under
+    which it counts launches); as static scales they reproduce the forward
+    bit for bit."""
+    from jmt_tpu_torch.ops.kernels import int8_conv as kernels
+    from jmt_tpu_torch.train.loops import eval_forward
+    used, original = [], kernels._launch_quantize
+
+    def spy(x, scale):
+        q, s_x = original(x, scale)
+        used.append(s_x)
+        return q, s_x
+
+    kernels._launch_quantize = spy
+    try:
+        out = eval_forward(model, arrays, True)
+    finally:
+        kernels._launch_quantize = original
+    return out, used
+
+
+K5_KERNELS = ("int8_conv_kernel",)
+K6_KERNELS = ("absmax_kernel", "quantize_kernel", "quantize_nc_kernel")
+
+
+def _int8_group(name: str) -> str:
+    if any(k in name for k in K5_KERNELS):
+        return "int8_conv"
+    if any(k in name for k in K6_KERNELS):
+        return "quantize_act"
+    return "other"
+
+
+def profile_int8_eager(path: str, model, arrays, scales,
+                       reps: int = 3) -> None:
+    """The eager static int8 forward under torch.profiler, with ranges
+    around each conv's weight quantize (``quant.quantize_weight_per_
+    channel``) and each K5 launch (its weight re-layout, then K5): the
+    device ms a forward spends in each, beside K5's and K6's kernels by
+    name. A graph replay runs the same kernels. A range's device time is
+    that of the torch kernels launched inside it: K5's launch through
+    ctypes belongs to no torch op, so the K5 range holds the re-layout
+    alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from jmt_tpu_torch.ops import quant
+    from jmt_tpu_torch.ops.kernels import int8_conv as kernels
+    from jmt_tpu_torch.train.loops import eval_forward
+    originals = (quant.quantize_weight_per_channel, kernels._launch_conv)
+
+    def ranged(name, fn):
+        def wrapper(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return wrapper
+
+    eval_forward(model, arrays, "static", scales)
+    torch.cuda.synchronize()
+    quant.quantize_weight_per_channel = ranged("int8.weight_quantize",
+                                               originals[0])
+    kernels._launch_conv = ranged("int8.k5_call", originals[1])
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                eval_forward(model, arrays, "static", scales)
+            torch.cuda.synchronize()
+    finally:
+        quant.quantize_weight_per_channel, kernels._launch_conv = originals
+    ranges = {"int8.weight_quantize": 0.0, "int8.k5_call": 0.0}
+    calls = dict.fromkeys(ranges, 0)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in ranges:
+            ranges[ev.name] += ev.device_time_total / reps / 1e3
+            calls[ev.name] += 1
+    kernels_ms = {"int8_conv": 0.0, "quantize_act": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        # the ranges also stand on the device's timeline: not kernels
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total
+                and ev.key not in ranges):
+            kernels_ms[_int8_group(ev.key)] += (ev.self_device_time_total
+                                                / reps / 1e3)
+    wq = ranges["int8.weight_quantize"]
+    emit({"phase": "profile_int8_eager", "path": path,
+          "batch": int(arrays["clips"].shape[0]),
+          "device_ms_per_forward": sum(kernels_ms.values()),
+          "k5_ms": kernels_ms["int8_conv"],
+          "k6_ms": kernels_ms["quantize_act"],
+          "weight_quantize_ms": wq,
+          "weight_relayout_ms": ranges["int8.k5_call"],
+          "range_calls_per_forward": {k: v / reps
+                                      for k, v in calls.items()}})
+
+
+def phase_int8(rng) -> dict:
+    """int8 serving of the flagship (bf16, seed-0 weights), inception
+    unfused then fused: a bf16 server and a dynamic int8 server at buckets
+    1 and 8, replays against the eager forward bitwise; ``calibrate`` on
+    the bucket-1 request to static, its scale count asserted; V/A drift
+    of each mode against bf16; static given the scales a dynamic forward
+    used equals that forward bitwise; replay ms per bucket and mode;
+    unfused, the bf16 and static replays' profiles and the eager static
+    forward's split (K5, K6, weight quantize and re-layout). Returns the launches of the static server's bucket-8 graph (unfused),
+    the main int8 path."""
+    from jmt_tpu_torch.ops import quant
+    from jmt_tpu_torch.serve import InferenceServer
+    from jmt_tpu_torch.train.loops import _on, eval_forward
+    reqs = {b: request(rng, b, 16) for b in (1, 8)}
+    main = None
+    for fused in (False, True):
+        path = "int8_fused" if fused else "int8"
+        n = INT8_SCALES[fused]
+        model = make_model(FLAGSHIP_CONFIG, torch.bfloat16,
+                           i3d_fused_inception=fused)
+        server = InferenceServer(model, seq=16, buckets=(1, 8))
+        base = {b: server.predict(*reqs[b]) for b in reqs}
+        times = {"bf16": replay_ms(server)}
+        if not fused:
+            for b in reqs:
+                profile_replay(path + "_bf16", server, b)
+        del server
+        torch.cuda.empty_cache()
+        server, built = counted(lambda: InferenceServer(
+            model, seq=16, buckets=(1, 8), int8=True))
+        int8_expect(path + "_dynamic", server, n, fused)
+        dyn = {b: server.predict(*reqs[b]) for b in reqs}
+        times["dynamic"] = replay_ms(server)
+        arrays = {b: _on(dict(zip(REQUEST_KEYS, reqs[b])),
+                         torch.device("cuda")) for b in reqs}
+        eager_dyn = eval_forward(model, arrays[8], True)
+        # the scales a dynamic forward used reproduce it as static scales
+        again, used = dynamic_forward_scales(model, arrays[1])
+        given = eval_forward(model, arrays[1], "static",
+                             [float(v) for v in used])
+        scales = server.calibrate(*reqs[1])
+        if len(scales) != n or len(used) != n:
+            raise AssertionError(f"{path}: {len(scales)} calibrated scales, "
+                                 f"{len(used)} used, expected {n}")
+        int8_expect(path + "_static", server, n, fused)
+        stat = {b: server.predict(*reqs[b]) for b in reqs}
+        times["static"] = replay_ms(server)
+        eager_stat = eval_forward(model, arrays[8], "static", scales)
+        if not fused:
+            for b in reqs:
+                profile_replay(path + "_static", server, b)
+                profile_int8_eager(path + "_static", model, arrays[b],
+                                   scales)
+        if main is None:
+            main = dict(server.graphs[8].launches)
+        rec = {"phase": "int8_server", "path": path, "scales": len(scales),
+               "replay_ms": times}
+        for b in reqs:
+            rec[f"dynamic_vs_bf16_va_max_abs_b{b}"] = va_max_abs(dyn[b],
+                                                                 base[b])
+            rec[f"static_vs_bf16_va_max_abs_b{b}"] = va_max_abs(stat[b],
+                                                                base[b])
+        rec["static_vs_dynamic_calibration_request_va_max_abs"] = \
+            va_max_abs(stat[1], dyn[1])
+        rec["static_given_used_scales_vs_dynamic_va_max_abs"] = max(
+            (x.float() - y.float()).abs().max().item()
+            for x, y in zip(given, again))
+        rec["replay_vs_eager_b8"] = {
+            "dynamic": va_max_abs(dyn[8], [t.float().cpu().numpy()
+                                           for t in eager_dyn]),
+            "static": va_max_abs(stat[8], [t.float().cpu().numpy()
+                                           for t in eager_stat])}
+        rec["first_scale_calibrated_vs_used"] = [scales[0],
+                                                 float(used[0])]
+        emit(rec)
+        bound_ = quant.FLAGSHIP_VA_ABS_BOUND
+        drifts = [v for k, v in rec.items() if k.endswith(
+            tuple(f"bf16_va_max_abs_b{b}" for b in reqs))]
+        for b in reqs:
+            for out in (dyn[b], stat[b]):
+                if not (np.isfinite(out).all() and out[0].shape == (b, 16)):
+                    raise AssertionError(f"{path} bucket {b}: output")
+        if not all(0.0 < d < bound_ for d in drifts):
+            raise AssertionError(f"{path}: V/A drift from bf16 {drifts}, "
+                                 f"bound {bound_}")
+        if rec["static_given_used_scales_vs_dynamic_va_max_abs"] != 0.0:
+            raise AssertionError(f"{path}: static with the dynamic "
+                                 f"forward's scales is not that forward")
+        if any(v != 0.0 for v in rec["replay_vs_eager_b8"].values()):
+            raise AssertionError(f"{path}: replay against eager "
+                                 f"{rec['replay_vs_eager_b8']}")
+        if np.float32(scales[0]) != used[0].item():
+            raise AssertionError(f"{path}: the first conv's calibrated "
+                                 f"scale {scales[0]} against the dynamic "
+                                 f"one {used[0].item()}")
+        emit({"phase": "launches", "path": path + "_build",
+              "forwards": 3 * len(server.buckets), **built})
+        del server, model
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_serve_int8(exp: str) -> None:
+    """``python -m jmt_tpu_torch.serve --int8`` and ``--int8-static`` on
+    cli_train's directory at bucket 1, in this process: each one's latency
+    JSON and launches (each K5 launch with a K6 one)."""
+    import io
+    from jmt_tpu_torch import serve
+    for flag in ("--int8", "--int8-static"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, launches = counted(lambda: serve.main(
+                ["--exp-dir", exp, "--buckets", "1", flag]))
+        stats = json.loads(out.getvalue().strip().splitlines()[-1])
+        emit({"phase": "serve_int8", "flag": flag, "rc": rc,
+              **stats["buckets"]["1"], "launches": launches})
+        if rc != 0 or launches["int8_conv"] == 0 or \
+                launches["int8_conv"] != launches["quantize_act"]:
+            raise AssertionError(f"serve {flag}: rc {rc}, {launches}")
+
+
 def request_latency(predict, req, iters: int = 12, warmup: int = 2) -> dict:
     """p50/p90 of ``predict(*req)`` on the host clock (it returns numpy, so
     each call ends synchronized), and clips/s at the p50."""
@@ -1006,7 +1543,8 @@ def profile_forward(path: str, server, req, reps: int = 3) -> None:
 
 def profile_replay(path: str, server, b: int, reps: int = 3) -> None:
     """One bucket's graph replayed ``reps`` times under torch.profiler:
-    device ms, idle share and kernels per replay."""
+    device ms, idle share and kernels per replay, and their split into
+    K5, K6 and the rest by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     graph = server.graphs[b]
@@ -1019,15 +1557,19 @@ def profile_replay(path: str, server, b: int, reps: int = 3) -> None:
             graph.replay()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    rows = [(ev.self_device_time_total / reps / 1e3, ev.count / reps)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    busy = sum(r[0] for r in rows)
+    groups = {g: {"ms": 0.0, "kernels": 0.0}
+              for g in ("int8_conv", "quantize_act", "other")}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            g = groups[_int8_group(ev.key)]
+            g["ms"] += ev.self_device_time_total / reps / 1e3
+            g["kernels"] += ev.count / reps
+    busy = sum(g["ms"] for g in groups.values())
     emit({"phase": "profile_replay", "path": path, "batch": b,
           "wall_ms_per_replay": wall_ms, "device_ms_per_replay": busy,
           "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
-          "kernels_per_replay": sum(r[1] for r in rows)})
+          "kernels_per_replay": sum(g["kernels"] for g in groups.values()),
+          "groups": groups})
 
 
 def phase_card_vs_cpu() -> None:
@@ -2446,6 +2988,8 @@ def main() -> int:
                     "replaces": "jmt_tpu/ops/inception_pallas.py:482",
                     "dtype": "bfloat16", **check_inception(gen)}]
         k3_pool_in = check_inception(gen, absorbed=True)
+        k5, k6 = check_int8(registers)
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     with phase("flagship"):
         launches, model_on, reqs = phase_flagship(rng)
@@ -2460,6 +3004,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("pool1x1"):
         k4 = phase_pool1x1(registers)
+    torch.cuda.empty_cache()
+    with phase("int8"):
+        int8_launches = phase_int8(np.random.default_rng(3))
     torch.cuda.empty_cache()
     with phase("card_vs_cpu"), full_fp32():
         phase_card_vs_cpu()
@@ -2480,6 +3027,8 @@ def main() -> int:
         phase_cli_eval(exp)
     with phase("serve"):
         phase_serve(exp)
+    with phase("serve_int8"):
+        phase_serve_int8(exp)
     with phase("cli_default_config"):
         phase_cli_default_config()
     with phase("cli_files_pretrained"):
@@ -2498,6 +3047,15 @@ def main() -> int:
                                      registers["inception"].items()
                                      if "inception_gemm" in f), default=None)}
     kernels.append(k4)
+    for rec in (k5, k6):
+        rec["launches"] = int8_launches[rec["name"]]
+        rec["launches_of"] = ("one graphed forward of the static int8 "
+                              "flagship server (bucket 8's capture, "
+                              "inception unfused)")
+        if rec["launches"] != INT8_SCALES[False]:
+            raise AssertionError(f"{rec['name']}: {rec['launches']} "
+                                 f"launches a forward")
+        kernels.append(rec)
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

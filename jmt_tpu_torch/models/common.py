@@ -116,7 +116,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 class ConvNd(nn.Module):
     """Conv (1-, 2- or 3-D by kernel rank), weight (O, I, *k) as in torch,
-    bias-free unless ``bias``, cast at use to ``dtype``. A bias is added
+    bias-free unless ``bias``, cast at use to ``dtype``, run by
+    ``ops/conv.conv_nd`` (int8 under an int8 context). A bias is added
     after the conv, in ``dtype``, as the JAX modules add theirs."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel, stride=1, padding=0,
@@ -125,14 +126,16 @@ class ConvNd(nn.Module):
         kernel = tuple(kernel)
         self.dtype = dtype
         self.stride = stride
-        self.padding = padding
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
-        self._conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[len(kernel)]
+        pad = (padding,) * len(kernel) if isinstance(padding, int) \
+            else tuple(padding)
+        self.pads = tuple((p, p) for p in pad)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._conv(cast(x, self.dtype), cast(self.weight, self.dtype),
-                       None, self.stride, self.padding)
+        from jmt_tpu_torch.ops.conv import conv_nd  # ops.conv imports cast
+        y = conv_nd(cast(x, self.dtype), cast(self.weight, self.dtype),
+                    self.stride, self.pads)
         if self.bias is None:
             return y
         return y + cast(self.bias, self.dtype).view(-1, *[1] * (y.ndim - 2))

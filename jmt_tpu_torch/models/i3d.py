@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from jmt_tpu_torch.models.common import ConvNd, cast
 from jmt_tpu_torch.models.tcn import TemporalConvNet
 from jmt_tpu_torch.ops.conv import (avg_pool, conv3d_stem_upsample2x,
-                                    max_pool_same, pad_arg, tf_same_pads)
+                                    conv_nd, max_pool_same, tf_same_pads)
 from jmt_tpu_torch.ops.inception import BN_EPS, fold_inception_weights
 from jmt_tpu_torch.ops.kernels import inception as inception_kernel
 from jmt_tpu_torch.ops.kernels.inception import (inception_module_fused,
@@ -55,11 +55,8 @@ class Unit3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pads = tf_same_pads(x.shape[2:], self.kernel, self.stride)
-        padding = tuple(lo for lo, _ in pads)
-        if any(lo != hi for lo, hi in pads):
-            x, padding = F.pad(x, pad_arg(pads)), 0
-        y = F.conv3d(cast(x, self.dtype), cast(self.conv3d.weight, self.dtype),
-                     None, self.stride, padding)
+        y = conv_nd(cast(x, self.dtype), cast(self.conv3d.weight, self.dtype),
+                    self.stride, pads)
         return self.epilogue(y)
 
     def upsampled2x(self, x: torch.Tensor) -> torch.Tensor:
@@ -139,7 +136,7 @@ class InceptionModule(nn.Module):
         o = self.out_channels
         k = torch.cat([self.b0.conv3d.weight, self.b1a.conv3d.weight,
                        self.b2a.conv3d.weight])
-        y = F.conv3d(cast(x, self.dtype), cast(k, self.dtype))
+        y = conv_nd(cast(x, self.dtype), cast(k, self.dtype))
         y0, y1, y2 = torch.split(y, [o[0], o[1], o[3]], dim=1)
         out = torch.cat([
             self.b0.epilogue(y0),

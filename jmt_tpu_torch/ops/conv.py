@@ -17,9 +17,13 @@ in torch's NC... layout:
 * ``WeightNormConv1d``: the TCN's causal dilated conv under torch
   ``weight_norm``, weight ``g * v / ||v||``.
 
+* ``conv_nd``: every conv of the backbones, the counterpart of JAX's
+  ``conv_nd``: int8 (``ops/quant.py``) under an int8 context when the
+  weight is ``eligible``, else ``F.conv1d/2d/3d``.
+
 The JAX package's space-to-depth stem (``conv3d_s2d_hw``) was a TPU
-lane-packing trick: a plain conv3d computes the same function. int8 belongs
-to a later slice.
+lane-packing trick: a plain conv3d computes the same function, int8
+included (the zero taps and pads change neither the maxima nor the sums).
 """
 from __future__ import annotations
 
@@ -33,8 +37,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from jmt_tpu_torch.models.common import cast
+from jmt_tpu_torch.ops import quant
 
 Pads = Tuple[Tuple[int, int], ...]
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
 def tf_same_pads(sizes: Sequence[int], kernel: Sequence[int],
@@ -51,6 +57,28 @@ def tf_same_pads(sizes: Sequence[int], kernel: Sequence[int],
 def pad_arg(pads: Pads) -> list:
     """(front, back) pairs in dim order -> ``F.pad``'s last-dim-first list."""
     return [v for p in reversed(pads) for v in p]
+
+
+def conv_nd(x: torch.Tensor, weight: torch.Tensor, stride=1,
+            pads: Optional[Pads] = None, dilation=1) -> torch.Tensor:
+    """x (N, I, *spatial), weight (O, I, *k), both in the compute dtype;
+    pads: (lo, hi) per spatial dim, or None. Under an int8 context an
+    eligible weight takes the int8 path (in calibration: records max |x|
+    and computes as below); otherwise ``F.conv*``, with an asymmetric pad
+    applied first."""
+    def float_conv():
+        xp, padding = x, 0
+        if pads is not None:
+            if any(lo != hi for lo, hi in pads):
+                xp = F.pad(x, pad_arg(pads))
+            else:
+                padding = tuple(lo for lo, _ in pads)
+        return _CONV[weight.ndim - 2](xp, weight, None, stride, padding,
+                                      dilation)
+
+    if quant.quant_enabled() and quant.eligible(weight.shape):
+        return quant.int8_conv(x, weight, stride, pads, dilation, float_conv)
+    return float_conv()
 
 
 def max_pool_same(x: torch.Tensor, kernel: Sequence[int],
@@ -129,7 +157,7 @@ def conv3d_stem_upsample2x(x: torch.Tensor, weight: torch.Tensor,
     xr = F.pad(x, (1, 1, 1, 1, 0, 0), mode="replicate")
     xz = F.pad(xr, (1, 1, 1, 1))
     t0, t1 = t_pad
-    out = F.conv3d(F.pad(xz, (0, 0, 0, 0, t0, t1)), k5)
+    out = conv_nd(F.pad(xz, (0, 0, 0, 0, t0, t1)), k5)
 
     alphas = {0: alpha["lo"], h - 2: alpha["hi1"], h - 1: alpha["hi0"]}
     walphas = {0: alpha["lo"], w - 2: alpha["hi1"], w - 1: alpha["hi0"]}
@@ -141,19 +169,19 @@ def conv3d_stem_upsample2x(x: torch.Tensor, weight: torch.Tensor,
         krow = cast(torch.einsum("h,bw,oithw->oitb", av, m, wf),
                     compute_dtype)
         row = xz[:, :, :, border_row[jh] + 2, :]          # (N, Ci, T, W+4)
-        out[:, :, :, jh, :] -= F.conv2d(F.pad(row, (0, 0) + tpad), krow)
+        out[:, :, :, jh, :] -= conv_nd(F.pad(row, (0, 0) + tpad), krow)
     for jw, av in walphas.items():
         kcol = cast(torch.einsum("w,ah,oithw->oita", av, m, wf),
                     compute_dtype)
         col = xz[:, :, :, :, border_col[jw] + 2]          # (N, Ci, T, H+4)
-        out[:, :, :, :, jw] -= F.conv2d(F.pad(col, (0, 0) + tpad), kcol)
+        out[:, :, :, :, jw] -= conv_nd(F.pad(col, (0, 0) + tpad), kcol)
     # corners were subtracted twice: add back once
     for jh, ah in alphas.items():
         for jw, aw in walphas.items():
             kc = cast(torch.einsum("h,w,oithw->oit", ah, aw, wf),
                       compute_dtype)
             px = x[:, :, :, border_row[jh], border_col[jw]]  # (N, Ci, T)
-            out[:, :, :, jh, jw] += F.conv1d(F.pad(px, tpad), kc)
+            out[:, :, :, jh, jw] += conv_nd(F.pad(px, tpad), kc)
     return out
 
 
@@ -181,6 +209,6 @@ class WeightNormConv1d(nn.Module):
         norm = torch.sqrt(torch.sum(v ** 2, dim=(1, 2), keepdim=True))
         weight = (self.weight_g / norm) * v
         pad = (self.weight_v.shape[-1] - 1) * self.dilation
-        y = F.conv1d(F.pad(cast(x, self.dtype), (pad, 0)),
-                     cast(weight, self.dtype), dilation=self.dilation)
+        y = conv_nd(F.pad(cast(x, self.dtype), (pad, 0)),
+                    cast(weight, self.dtype), dilation=self.dilation)
         return y + cast(self.bias, self.dtype)[:, None]

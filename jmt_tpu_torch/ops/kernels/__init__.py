@@ -11,9 +11,10 @@ def _counters() -> Dict[str, Tuple[object, str]]:
     """Each count's (wrapper, attribute): K1 ``log_mel``, K2
     ``fused_attention``, K3 ``inception_module_fused`` (and
     ``inception_pool_in``, its launches with the pool prologue), K4
-    ``pool3_1x1``."""
+    ``pool3_1x1``, K5 ``int8_conv``, K6 ``quantize_act``."""
     from jmt_tpu_torch.ops.kernels.fused_attention import fused_attention
     from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
+    from jmt_tpu_torch.ops.kernels.int8_conv import int8_conv, quantize_act
     from jmt_tpu_torch.ops.kernels.melspec import log_mel_spec
     from jmt_tpu_torch.ops.kernels.pool1x1 import pool3_1x1
     return {"log_mel": (log_mel_spec, "launches"),
@@ -21,7 +22,9 @@ def _counters() -> Dict[str, Tuple[object, str]]:
             "inception_module_fused": (inception_module_fused, "launches"),
             "inception_pool_in": (inception_module_fused,
                                   "pool_in_launches"),
-            "pool3_1x1": (pool3_1x1, "launches")}
+            "pool3_1x1": (pool3_1x1, "launches"),
+            "int8_conv": (int8_conv, "launches"),
+            "quantize_act": (quantize_act, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -26,7 +26,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "jmt_tpu_torch"
-SOURCES = ("melspec", "fused_attention", "inception", "pool1x1")
+SOURCES = ("melspec", "fused_attention", "inception", "pool1x1",
+           "int8_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

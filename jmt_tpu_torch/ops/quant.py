@@ -1,0 +1,174 @@
+"""int8 inference: s8 x s8 -> s32 convolutions with per-channel weight and
+per-tensor activation scales.
+
+Counterpart of ``jmt_tpu/ops/quant.py``, with its numerics:
+
+* weights: per output channel, symmetric: ``s_w = max(max|w| / 127,
+  1e-12)`` over (Cin x window), ``q = clip(round(w / s_w), -127, 127)``,
+  taken on the weight as the caller cast it to the compute dtype;
+* activations: per tensor, symmetric: dynamic ``s_x = max(max|x| / 127,
+  1e-12)`` per call, or static, the next entry of calibrated
+  ``act_scales`` in execution order;
+* ``round`` is round-half-to-even and ``/`` a true f32 division
+  (``true_div_127``);
+* accumulate in s32, then ``float(acc) * (s_x * s_w[c])`` in f32 (the
+  scale product first), cast to x's dtype.
+
+A conv goes int8 when a context is active and ``eligible`` holds
+(Cin x window >= 64): ``ops/conv.conv_nd`` asks. The contexts are
+thread-local and read at FORWARD time (the port's counterpart of JAX's
+trace time): a CUDA graph captured inside one bakes its mode, and in static
+mode its scales, into the graph.
+
+* ``int8_inference(enabled, act_scales)``: dynamic, or static with
+  ``act_scales``. Each entry is one forward: it consumes the scales from
+  the first, raises when they run out, and raises on leaving when some
+  were left over (a persisted scale list of another configuration);
+* ``int8_calibration(collector)``: each eligible conv appends its max |x|
+  (a 0-d f32 tensor on x's device) and computes in its own dtype; feed
+  them to ``act_scales_from_maxes``.
+
+The s8 product and the activation quantizer are kernels K5 and K6
+(``ops/kernels/int8_conv.py``). Training is never quantized: the kernels
+have no backward, so an int8 conv under autograd raises.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+_STATE = threading.local()
+
+# minimum contraction (Cin x window taps) for the int8 path: tiny stems
+# gain nothing and lose accuracy, so they stay in the compute dtype
+_MIN_CONTRACTION = 64
+
+# flagship eval V/A absolute drift bound against the unquantized path
+# (jmt_tpu/ops/quant.py:49)
+FLAGSHIP_VA_ABS_BOUND = 0.1
+
+_REMEDY = "calibrate with the same model/config"
+
+
+def quant_enabled() -> bool:
+    return (getattr(_STATE, "int8", False)
+            or getattr(_STATE, "calib", None) is not None)
+
+
+@contextlib.contextmanager
+def int8_inference(enabled: bool = True,
+                   act_scales: Optional[Sequence[float]] = None):
+    """One forward with eligible convs in int8: dynamic activation scales,
+    or static ones (``act_scales``, execution order)."""
+    saved = tuple(getattr(_STATE, k, None) for k in ("int8", "scales", "pos"))
+    _STATE.int8 = bool(enabled)
+    _STATE.scales = ([float(s) for s in act_scales]
+                     if enabled and act_scales is not None else None)
+    _STATE.pos = 0
+    try:
+        yield
+        scales, pos = _STATE.scales, _STATE.pos
+        if scales is not None and pos != len(scales):
+            raise RuntimeError(
+                f"int8 act_scales left over: the forward ran {pos} eligible "
+                f"convs but {len(scales)} scales were given — {_REMEDY}")
+    finally:
+        _STATE.int8, _STATE.scales, _STATE.pos = saved
+
+
+@contextlib.contextmanager
+def int8_calibration(collector: list):
+    """Eligible convs compute in their dtype and append max |x| (0-d f32
+    tensors, execution order) to ``collector``."""
+    saved = getattr(_STATE, "calib", None)
+    _STATE.calib = collector
+    try:
+        yield
+    finally:
+        _STATE.calib = saved
+
+
+def stack_maxes(collector: List[torch.Tensor]) -> torch.Tensor:
+    """A calibration's maxes as one f32 vector on the host, copied once;
+    ``zeros(0)`` when no conv was eligible."""
+    if not collector:
+        return torch.zeros(0, dtype=torch.float32)
+    return torch.stack(collector).float().cpu()
+
+
+def act_scales_from_maxes(maxes, margin: float = 1.0) -> List[float]:
+    """Per-conv max |x| -> static activation scales
+    ``max(m * margin, 1e-12) / 127`` (Python floats, as JAX's)."""
+    flat = torch.as_tensor(maxes, dtype=torch.float32).reshape(-1).tolist()
+    return [max(m * margin, 1e-12) / 127.0 for m in flat]
+
+
+def true_div_127(m: torch.Tensor) -> torch.Tensor:
+    """m / 127 as an f32 division. On CUDA, PyTorch divides by a Python
+    scalar as a product with its reciprocal, one ulp off at times; a
+    divisor tensor made on the device keeps the true division (and makes
+    no host-to-device copy, so a CUDA graph can hold it)."""
+    return m / torch.full_like(m, 127.0)
+
+
+def eligible(weight_shape) -> bool:
+    """weight (O, I, *k): int8 when I x prod(k) >= 64."""
+    return math.prod(weight_shape[1:]) >= _MIN_CONTRACTION
+
+
+def quantize_weight_per_channel(weight: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """weight (O, I, *k) -> (int8 weight, f32 scale (O,))."""
+    wf = weight.float()
+    s = true_div_127(torch.amax(wf.abs().reshape(wf.shape[0], -1), dim=1))
+    s = torch.clamp_min(s, 1e-12)
+    q = torch.clamp(torch.round(wf / s.view(-1, *[1] * (wf.ndim - 1))),
+                    -127, 127).to(torch.int8)
+    return q, s
+
+
+def quantize_tensor(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor dynamic int8: (int8 x, 0-d f32 scale), x's layout."""
+    xf = x.float()
+    s = torch.clamp_min(true_div_127(torch.amax(xf.abs())), 1e-12)
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def _next_scale() -> Optional[float]:
+    """The next static scale, or None in dynamic mode."""
+    scales = _STATE.scales
+    if scales is None:
+        return None
+    if _STATE.pos >= len(scales):
+        raise RuntimeError(
+            "int8 act_scales exhausted: the model traces more eligible "
+            f"convs than the calibration recorded — {_REMEDY}")
+    _STATE.pos += 1
+    return scales[_STATE.pos - 1]
+
+
+def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride, pads,
+              dilation, float_conv) -> torch.Tensor:
+    """An eligible conv under a context: x (N, I, *spatial), weight
+    (O, I, *k), both in the compute dtype; pads ((lo, hi), ...) per
+    spatial dim. Calibration records max |x| and returns
+    ``float_conv()``; inference quantizes x (K6) and the weight, runs the
+    s8 product (K5) and returns x's dtype."""
+    from jmt_tpu_torch.ops.kernels import int8_conv as kernels
+    coll = getattr(_STATE, "calib", None)
+    if coll is not None:
+        coll.append(torch.amax(x.detach().abs()).float())
+        return float_conv()
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        raise RuntimeError(
+            "int8 inference has no backward: run it under "
+            "torch.inference_mode() or torch.no_grad(); training is never "
+            "quantized")
+    w_q, s_w = quantize_weight_per_channel(weight)
+    x_q, s_x = kernels.quantize_act(x, _next_scale())
+    return kernels.int8_conv(x_q, w_q, s_x, s_w, stride, dilation, pads,
+                             x.dtype)

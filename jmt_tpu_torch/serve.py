@@ -26,6 +26,11 @@ under ``torch.inference_mode()``.
   extractor (``data/wavlm_extract.py``) gives full-track features.
 * Weights come from a training run (``from_experiment``: the
   ``SavedWeights/`` components of the best epoch, or ``train_state.pt``).
+* **int8** (``int8=True``: dynamic activation scales; ``"static"`` with
+  ``int8_scales``): eligible backbone convs run the s8 kernels
+  (``ops/quant.py``); each graph is captured under the mode, so a static
+  graph bakes its scales in. ``calibrate`` measures static scales on a
+  request and captures the graphs again.
 * ``StreamingSession``: per-video stitched, clipped and smoothed V/A as
   eval windows arrive; ``measure_latency``: request p50/p90 per bucket.
 
@@ -38,7 +43,8 @@ Command line (seed-0 random weights without ``--exp-dir``; prints the
 latency JSON)::
 
     python -m jmt_tpu_torch.serve [--exp-dir DIR] [--buckets 1,8] \\
-        [--heavy] [--wavlm-checkpoint PT] [--device cpu]
+        [--heavy] [--wavlm-checkpoint PT] [--int8 | --int8-static] \\
+        [--device cpu]
 """
 from __future__ import annotations
 
@@ -55,8 +61,9 @@ import numpy as np
 import torch
 
 from jmt_tpu_torch.device import resolve_device
+from jmt_tpu_torch.ops import quant
 from jmt_tpu_torch.ops.mel import AUDIO_SAMPLES
-from jmt_tpu_torch.train.loops import eval_forward
+from jmt_tpu_torch.train.loops import calibration_forward, eval_forward
 
 WARMUP_FORWARDS = 2
 
@@ -168,10 +175,23 @@ class InferenceServer:
                  img_size: int = 112, audio_samples: Optional[int] = None,
                  use_wavlm: Optional[bool] = None,
                  wavlm_frontend: Optional[WavLMFrontend] = None,
-                 device=None):
+                 device=None, int8=False, int8_scales=None):
         """device: None = the card (raises when there is none), where each
         bucket's graph is captured here; ``"cpu"`` runs the plain PyTorch
-        path eagerly."""
+        path eagerly. int8: False, True (dynamic activation scales) or
+        ``"static"`` (the calibrated ``int8_scales``, from
+        ``train.loops.make_calibration_step`` or ``calibrate``)."""
+        if int8 not in (False, True, "static"):
+            raise ValueError(f"int8={int8!r}: False, True or 'static'")
+        self.int8 = int8
+        self.int8_scales = (None if int8_scales is None
+                            else [float(v) for v in int8_scales])
+        if int8 == "static" and self.int8_scales is None:
+            raise ValueError(
+                "int8='static' needs int8_scales — pass scales from "
+                "train.loops.make_calibration_step, or construct with "
+                "int8=True and call .calibrate(clips, audio[, wavlm]) on "
+                "a representative request")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.seq = seq
@@ -182,6 +202,11 @@ class InferenceServer:
         self.wavlm_dim = (wavlm_frontend.cfg.hidden_size
                           if wavlm_frontend is not None else 768)
         self.buckets = sorted(set(int(b) for b in buckets))
+        self._capture()
+
+    def _capture(self) -> None:
+        """One graph per bucket on the card, under the server's int8 mode
+        (the previous graphs released first)."""
         self.graphs: Dict[int, BucketGraph] = {}
         if self.device.type == "cuda":
             for b in self.buckets:
@@ -206,8 +231,25 @@ class InferenceServer:
     def forward(self, arrays: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The eager forward of one bucket-shaped batch of device tensors
-        -> (vouts, aouts)."""
-        return eval_forward(self.model, arrays)
+        -> (vouts, aouts), in the server's int8 mode."""
+        return eval_forward(self.model, arrays, self.int8,
+                            self.int8_scales if self.int8 == "static"
+                            else None)
+
+    def calibrate(self, clips: np.ndarray, audio: np.ndarray,
+                  wavlm: Optional[np.ndarray] = None) -> List[float]:
+        """Measure per-conv activation scales on a representative request
+        (one eager calibration forward), switch to static int8 and
+        capture the bucket graphs again. Values beyond the calibrated
+        range clip: calibrate on data that covers the serving
+        distribution. Returns the scales (pass them as ``int8_scales`` to
+        skip this)."""
+        self.int8_scales = calibration_scales(
+            self.model, clips, audio, wavlm, self.wavlm_frontend,
+            self.device, self.use_wavlm)
+        self.int8 = "static"
+        self._capture()
+        return self.int8_scales
 
     def _check(self, clips: np.ndarray, audio: np.ndarray,
                wavlm: Optional[np.ndarray]) -> None:
@@ -295,34 +337,68 @@ class InferenceServer:
     def from_experiment(cls, exp_dir: str, buckets: Sequence[int] = (1, 8),
                         weights: str = "auto",
                         wavlm_frontend: Optional[WavLMFrontend] = None,
-                        device=None) -> "InferenceServer":
-        """Build from a finished training run (``python -m
-        jmt_tpu_torch.cli``): ``final_config.yml`` in Eval mode on one
-        device, then the weights: ``"components"`` the ``SavedWeights/``
-        component files (the best epoch), ``"state"`` ``train_state.pt``
-        (the last epoch), ``"auto"`` the components when there are any.
-        The weights are loaded before the graphs are captured."""
-        from jmt_tpu_torch.core.checkpoint import (STATE_FILE,
-                                                   restore_train_state)
-        from jmt_tpu_torch.core.config import Config
-        from jmt_tpu_torch.train.runner import Runner
-        if weights not in ("auto", "components", "state"):
-            raise ValueError(f"weights={weights!r}: 'auto', 'components' "
-                             f"or 'state'")
-        cfg = Config.from_file(os.path.join(exp_dir, "final_config.yml"))
-        cfg.Mode = "Eval"
-        cfg.mesh_data_parallel = 1
-        runner = Runner(cfg, None, None, device=device)
-        runner.initialize()
-        wdir = os.path.join(exp_dir, "SavedWeights")
-        has_components = os.path.isdir(wdir) and any(
-            f.endswith(".pt") and f != STATE_FILE for f in os.listdir(wdir))
-        if weights == "components" or (weights == "auto" and has_components):
-            runner.load_components(wdir)
+                        device=None, int8=False,
+                        int8_scales=None) -> "InferenceServer":
+        """Build from a finished training run (``experiment_model``); the
+        weights are loaded before the graphs are captured."""
+        return cls(experiment_model(exp_dir, weights, device),
+                   buckets=buckets, wavlm_frontend=wavlm_frontend,
+                   device=device, int8=int8, int8_scales=int8_scales)
+
+
+def experiment_model(exp_dir: str, weights: str = "auto", device=None):
+    """The model of a finished training run (``python -m
+    jmt_tpu_torch.cli``): ``final_config.yml`` in Eval mode on one device,
+    then the weights: ``"components"`` the ``SavedWeights/`` component
+    files (the best epoch), ``"state"`` ``train_state.pt`` (the last
+    epoch), ``"auto"`` the components when there are any."""
+    from jmt_tpu_torch.core.checkpoint import STATE_FILE, restore_train_state
+    from jmt_tpu_torch.core.config import Config
+    from jmt_tpu_torch.train.runner import Runner
+    if weights not in ("auto", "components", "state"):
+        raise ValueError(f"weights={weights!r}: 'auto', 'components' or "
+                         f"'state'")
+    cfg = Config.from_file(os.path.join(exp_dir, "final_config.yml"))
+    cfg.Mode = "Eval"
+    cfg.mesh_data_parallel = 1
+    runner = Runner(cfg, None, None, device=device)
+    runner.initialize()
+    wdir = os.path.join(exp_dir, "SavedWeights")
+    has_components = os.path.isdir(wdir) and any(
+        f.endswith(".pt") and f != STATE_FILE for f in os.listdir(wdir))
+    if weights == "components" or (weights == "auto" and has_components):
+        runner.load_components(wdir)
+    else:
+        restore_train_state(wdir, runner.state)
+    return runner.model
+
+
+def calibration_scales(model, clips: np.ndarray, audio: np.ndarray,
+                       wavlm: Optional[np.ndarray] = None,
+                       frontend: Optional[WavLMFrontend] = None,
+                       device=None, use_wavlm: Optional[bool] = None
+                       ) -> List[float]:
+    """Static int8 activation scales of ``model`` from one request at its
+    own batch size: ``train.loops.calibration_forward`` (what
+    ``make_calibration_step`` runs) on the device, then
+    ``act_scales_from_maxes``. Without ``wavlm`` a model with a wavLM path
+    takes the frontend's features."""
+    dev = resolve_device(device)
+    model.to(dev)
+    use_wavlm = model.use_wavlm if use_wavlm is None else use_wavlm
+    arrays = {"clips": torch.from_numpy(np.asarray(clips, np.uint8)),
+              "audio": torch.from_numpy(np.asarray(audio, np.float32))}
+    arrays = {k: x.to(dev) for k, x in arrays.items()}
+    if use_wavlm:
+        if wavlm is not None:
+            arrays["wavlm"] = torch.from_numpy(
+                np.asarray(wavlm, np.float32)).to(dev)
+        elif frontend is not None:
+            arrays["wavlm"] = frontend.features_tensor(np.asarray(audio))
         else:
-            restore_train_state(wdir, runner.state)
-        return cls(runner.model, buckets=buckets,
-                   wavlm_frontend=wavlm_frontend, device=device)
+            raise ValueError("the model has a wavLM path: pass wavlm, or "
+                             "a WavLMFrontend")
+    return quant.act_scales_from_maxes(calibration_forward(model, arrays))
 
 
 class StreamingSession:
@@ -454,9 +530,21 @@ def _latencies(server: InferenceServer) -> Dict:
 
 
 # the JAX command line's options that have no counterpart yet
-_NOT_PORTED = {"tp": "tensor-parallel serving (ROADMAP.md A.8)",
-               "int8": "int8 serving (ROADMAP.md A.10)",
-               "int8_static": "int8 serving (ROADMAP.md A.10)"}
+_NOT_PORTED = {"tp": "tensor-parallel serving (ROADMAP.md A.8)"}
+
+
+def _calibration_request(seq: int, img: int, audio_samples: int,
+                         wavlm_dim: Optional[int]):
+    """The JAX command line's calibration request: one seed-0 synthetic
+    window (clips, audio, and wavLM features unless ``wavlm_dim`` is
+    None)."""
+    rng = np.random.default_rng(0)
+    clips = rng.integers(0, 255, (1, seq, 8, img, img, 3), dtype=np.uint8)
+    audio = (rng.normal(size=(1, seq, audio_samples)) * .1).astype(
+        np.float32)
+    wavlm = (None if wavlm_dim is None else
+             rng.normal(size=(1, seq, wavlm_dim)).astype(np.float32))
+    return clips, audio, wavlm
 
 
 def main(argv=None) -> int:
@@ -479,8 +567,14 @@ def main(argv=None) -> int:
                         "wavLM features server-side (WavLMFrontend)")
     p.add_argument("--tp", type=int, default=0,
                    help="not ported: tensor-parallel serving")
-    p.add_argument("--int8", action="store_true", help="not ported")
-    p.add_argument("--int8-static", action="store_true", help="not ported")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 inference, dynamic activation scales "
+                        "(ops/quant.py)")
+    p.add_argument("--int8-static", action="store_true",
+                   help="int8 with static activation scales, calibrated "
+                        "on a synthetic request before the graphs are "
+                        "captured (production should calibrate on real "
+                        "data: InferenceServer.calibrate)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain PyTorch path)")
@@ -493,22 +587,31 @@ def main(argv=None) -> int:
         print("note: --compilation-cache is ignored: the server compiles "
               "nothing at request time", file=sys.stderr)
     buckets = tuple(int(x) for x in args.buckets.split(","))
+    frontend = None
     if args.exp_dir:
         # the frontend first: the server's wavLM width is the frontend's,
         # and measure_latency then times the raw-audio path
         frontend = (WavLMFrontend.from_checkpoint(args.wavlm_checkpoint,
                                                   device=args.device)
                     if args.wavlm_checkpoint else None)
-        server = InferenceServer.from_experiment(
-            args.exp_dir, buckets=buckets, wavlm_frontend=frontend,
-            device=args.device)
+        model = experiment_model(args.exp_dir, device=args.device)
     else:
         if args.wavlm_checkpoint:
             print("warning: --wavlm-checkpoint applies only with --exp-dir "
                   "(the synthetic self-test ignores it)", file=sys.stderr)
         model = init_parameters(_selftest_model(args.heavy),
                                 torch.Generator().manual_seed(0))
-        server = InferenceServer(model, buckets=buckets, device=args.device)
+    int8, scales = bool(args.int8), None
+    if args.int8_static:
+        # calibrate first, so that each bucket's graph is captured once
+        wavlm_dim = (None if frontend is not None or not model.use_wavlm
+                     else 768)
+        req = _calibration_request(16, 112, AUDIO_SAMPLES, wavlm_dim)
+        int8, scales = "static", calibration_scales(
+            model, *req, frontend=frontend, device=args.device)
+    server = InferenceServer(model, buckets=buckets, wavlm_frontend=frontend,
+                             device=args.device, int8=int8,
+                             int8_scales=scales)
     print(json.dumps(_latencies(server)))
     return 0
 

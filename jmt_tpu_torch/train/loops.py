@@ -15,6 +15,9 @@ Usage::
     loss, v, a = train_step(state, arrays)      # arrays: device_batch(...)
     eval_step = make_eval_step(model)
     v, a = eval_step(state, arrays)             # (B, S) each
+    maxes = make_calibration_step(model)(state, arrays)   # int8 inference:
+    scales = quant.act_scales_from_maxes(maxes)
+    v, a = make_eval_step(model, int8=True, act_scales=scales)(state, arrays)
 
 The entry points run on the card; ``device="cpu"`` runs the plain PyTorch
 path on the CPU, and with no card present the default raises.
@@ -29,6 +32,7 @@ from torch.profiler import record_function
 from jmt_tpu_torch.data.transforms import (preprocess_clips,
                                            sample_color_factors)
 from jmt_tpu_torch.device import resolve_device
+from jmt_tpu_torch.ops import quant
 from jmt_tpu_torch.ops.ccc import ccc_loss
 from jmt_tpu_torch.ops.mel import log_mel
 from jmt_tpu_torch.train.optim import build_optimizer
@@ -145,27 +149,62 @@ def make_train_step(model, more_vision_augm: bool = False,
     return train_step
 
 
-def eval_forward(model, arrays: Dict[str, torch.Tensor]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def eval_forward(model, arrays: Dict[str, torch.Tensor], int8=False,
+                 act_scales=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The eval forward of arrays already on the model's device: eval mode
     (running-statistics BN, no dropout), no augmentation,
-    ``torch.inference_mode``. The eval step's and the server's."""
+    ``torch.inference_mode``. The eval step's and the server's. ``int8``:
+    eligible backbone convs in int8 (``ops/quant.int8_inference``),
+    static with ``act_scales``."""
     if model.training:  # a train step left it in train mode
         model.eval()
-    with torch.inference_mode():
+    with torch.inference_mode(), quant.int8_inference(
+            bool(int8), act_scales=act_scales):
         spec, clips = preprocess(model, arrays)
         return model(spec, clips, arrays.get("wavlm"))
 
 
-def make_eval_step(model, device=None) -> Callable:
+def calibration_forward(model, arrays: Dict[str, torch.Tensor]
+                        ) -> torch.Tensor:
+    """One eval forward of arrays on the model's device that records each
+    eligible conv's max |x| (``ops/quant.int8_calibration``): an f32
+    vector on the host, execution order, copied once."""
+    if model.training:
+        model.eval()
+    coll: list = []
+    with torch.inference_mode(), quant.int8_calibration(coll):
+        spec, clips = preprocess(model, arrays)
+        model(spec, clips, arrays.get("wavlm"))
+    return quant.stack_maxes(coll)
+
+
+def make_calibration_step(model, device=None) -> Callable:
+    """Returns ``calib_step(state, arrays) -> maxes``: the per-eligible-conv
+    activation max |x| (f32, execution order) of the eval forward. Feed
+    it to ``ops/quant.act_scales_from_maxes`` and the scales to
+    ``make_eval_step(int8=True, act_scales=...)``."""
+    dev = resolve_device(device)
+    model.to(dev)
+
+    def calib_step(state: TrainState, arrays: Arrays) -> torch.Tensor:
+        _check_state(model, state)
+        return calibration_forward(model, _on(arrays, dev))
+
+    return calib_step
+
+
+def make_eval_step(model, device=None, int8=False,
+                   act_scales=None) -> Callable:
     """Returns ``eval_step(state, arrays) -> (vouts, aouts)``, each (B, S):
-    ``eval_forward`` on the arrays moved to the device."""
+    ``eval_forward`` on the arrays moved to the device. ``int8=True``:
+    eligible backbone convs in int8, with dynamic activation scales, or
+    static ``act_scales`` (``make_calibration_step``). Inference only."""
     dev = resolve_device(device)
     model.to(dev)
 
     def eval_step(state: TrainState, arrays: Arrays):
         _check_state(model, state)
-        return eval_forward(model, _on(arrays, dev))
+        return eval_forward(model, _on(arrays, dev), int8, act_scales)
 
     return eval_step
 

@@ -1363,14 +1363,15 @@ def test_graph_replay_matches_eager_forward_on_card(dtype, tol, cuda_device,
     K3's Mixed_5c launch sums its average pool by f32 atomics, whose
     order varies run to run (V 4.9e-4, A 9.8e-4 seen); f32 with TF32 off.
     Each bucket's capture holds 1 log-mel, 12 attention and 9 inception
-    launches."""
+    launches, and no int8 one."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     server = _flagship_server(dtype, cuda_device)
     for b, graph in server.graphs.items():
         assert graph.launches == {"log_mel": 1, "fused_attention": 12,
                                   "inception_module_fused": 9,
-                                  "inception_pool_in": 0, "pool3_1x1": 0}
+                                  "inception_pool_in": 0, "pool3_1x1": 0,
+                                  "int8_conv": 0, "quantize_act": 0}
         req = _request(b, seed=b)
         v, a = server.predict(*req)
         arrays = {k: torch.from_numpy(x).to(cuda_device)
@@ -1407,3 +1408,189 @@ def test_failed_capture_raises_and_moved_weights_are_refused(cuda_device):
     server.model.cpu()
     with pytest.raises(RuntimeError, match="moved"):
         server.predict(*_request(1))
+
+
+# ---------------------------------------------------------------------------
+# int8: K5 (the s8 conv) and K6 (the activation quantizer)
+# ---------------------------------------------------------------------------
+# one conv per shape family of the flagship: (x shape (N, C, *spatial),
+# weight shape (O, I, *k), stride, pads ((lo, hi) per dim or None),
+# dilation); shared with tests/test_torch_quant.py
+INT8_FAMILIES = {
+    "r2p1d_spatial": ((2, 64, 3, 9, 9), (40, 64, 1, 3, 3), (1, 2, 2),
+                      ((0, 0), (1, 1), (1, 1)), 1),
+    "r2p1d_temporal_odd_cin": ((2, 45, 5, 6, 6), (64, 45, 3, 1, 1),
+                               (2, 1, 1), ((1, 1), (0, 0), (0, 0)), 1),
+    "r2p1d_downsample": ((2, 64, 4, 6, 6), (32, 64, 1, 1, 1), 2, None, 1),
+    "i3d_3x3x3_same": ((2, 16, 4, 7, 7), (24, 16, 3, 3, 3), 1,
+                       ((1, 1), (1, 1), (1, 1)), 1),
+    "i3d_merged_1x1": ((2, 64, 2, 5, 5), (56, 64, 1, 1, 1), 1, None, 1),
+    "i3d_stride2_asym": ((1, 32, 4, 8, 8), (16, 32, 3, 3, 3), (1, 2, 2),
+                         ((1, 1), (0, 1), (0, 1)), 1),
+    "stem_fold_main": ((1, 3, 14, 12, 12), (16, 3, 7, 5, 5), 1, None, 1),
+    "stem_fold_row": ((1, 3, 14, 12), (16, 3, 7, 5), 1, None, 1),
+    "resnet_3x3_s2": ((2, 64, 13, 9), (32, 64, 3, 3), 2,
+                      ((1, 1), (1, 1)), 1),
+    "resnet_1x1_s2": ((2, 64, 13, 9), (32, 64, 1, 1), 2, None, 1),
+    "tcn_causal_dilated": ((2, 48, 9), (32, 48, 5), 1, ((8, 0),), 2),
+    "tcn_downsample": ((2, 96, 9), (32, 96, 1), 1, None, 1),
+}
+
+
+def _int8_operands(name, device="cpu", seed=0):
+    """Random s8 x and w at the family's shapes (x by K6's plain version,
+    so on the card in channels-last memory as K6 writes it), s_x, s_w."""
+    from jmt_tpu_torch.ops.kernels import int8_conv as k5
+    xs, ws, stride, pads, dil = INT8_FAMILIES[name]
+    gen = torch.Generator().manual_seed(seed)
+    x_q = torch.randint(-127, 128, xs, generator=gen, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, ws, generator=gen, dtype=torch.int8)
+    if device != "cpu":
+        x3 = x_q.reshape(xs[:2] + (1,) * (5 - len(xs)) + xs[2:])
+        x3 = x3.to(device).contiguous(memory_format=torch.channels_last_3d)
+        x_q = x3.reshape(xs)
+    s_x = torch.tensor(0.013, device=device)
+    s_w = (torch.rand(ws[0], generator=gen) * 1e-2 + 1e-4).to(device)
+    return x_q, w_q.to(device), s_x, s_w, stride, dil, pads, k5
+
+
+def test_int8_dispatch_cpu_uses_plain_and_does_not_count():
+    """On the CPU both wrappers are their plain versions and count no
+    launch; the dequantize is float(acc) * (s_x * s_w) in f32."""
+    x_q, w_q, s_x, s_w, stride, dil, pads, k5 = _int8_operands(
+        "i3d_3x3x3_same")
+    before = (k5.int8_conv.launches, k5.quantize_act.launches)
+    y, acc = k5.int8_conv(x_q, w_q, s_x, s_w, stride, dil, pads,
+                          torch.bfloat16, return_acc=True)
+    assert y.dtype == torch.bfloat16 and acc.dtype == torch.int32
+    want = (acc.float() * (s_x * s_w).view(1, -1, 1, 1, 1)).bfloat16()
+    assert torch.equal(y, want)
+    assert torch.equal(y, k5.int8_conv_plain(x_q, w_q, s_x, s_w, stride,
+                                             dil, pads, torch.bfloat16))
+    x = torch.randn(2, 8, 3, 4, 4)
+    q, s = k5.quantize_act(x)
+    assert q.dtype == torch.int8 and s.shape == ()
+    assert (k5.int8_conv.launches, k5.quantize_act.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(INT8_FAMILIES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_int8_conv_kernel_matches_plain_on_card(name, dtype, cuda_device):
+    """K5's s32 sums and dequantized output bitwise equal to the plain
+    version's (float64 conv on the integers), dynamic (s_x on the card)
+    and static (s_x a float); one launch each."""
+    x_q, w_q, s_x, s_w, stride, dil, pads, k5 = _int8_operands(
+        name, cuda_device)
+    for sx in (s_x, 0.013):
+        before = k5.int8_conv.launches
+        y, acc = k5.int8_conv(x_q, w_q, sx, s_w, stride, dil, pads, dtype,
+                              return_acc=True)
+        torch.cuda.synchronize()
+        assert k5.int8_conv.launches == before + 1
+        want_acc = k5.int8_acc_plain(x_q, w_q, stride, dil, pads)
+        want = k5.dequantize(want_acc, sx, s_w, dtype)
+        assert torch.equal(acc, want_acc)
+        assert y.dtype == dtype and torch.equal(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last",
+                                    "conv1d", "conv2d_channels_last",
+                                    "strided"])
+def test_quantize_act_kernel_matches_plain_on_card(dtype, layout,
+                                                   cuda_device):
+    """K6 bitwise equal to its plain version, dynamic and static, with
+    exact ties (max |x| = 127 makes s = 1), over each of its read paths
+    (channels-last rows, contiguous tiles (36 channels: a partial tile),
+    a strided gather); its output in channels-last memory."""
+    from jmt_tpu_torch.ops.kernels import int8_conv as k5
+    shape = {"contiguous": (2, 36, 3, 6, 7),
+             "channels_last": (2, 16, 3, 6, 7), "conv1d": (2, 48, 9),
+             "conv2d_channels_last": (2, 8, 13, 9),
+             "strided": (2, 5, 3, 6, 14)}
+    gen = torch.Generator().manual_seed(1)
+    x = (20 * torch.randn(shape[layout], generator=gen)).to(dtype)
+    x.view(-1)[:4] = torch.tensor([127.0, 0.5, -1.5, 2.5])
+    x = x.to(cuda_device)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    elif layout == "conv2d_channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "strided":
+        x = x[..., ::2]
+    for scale in (None, 0.37):
+        before = k5.quantize_act.launches
+        q, s = k5.quantize_act(x, scale)
+        want_q, want_s = k5.quantize_act_plain(x, scale)
+        torch.cuda.synchronize()
+        assert k5.quantize_act.launches == before + 1
+        assert torch.equal(q, want_q)
+        if scale is None:
+            assert s.device == x.device and torch.equal(s, want_s)
+            assert s.item() == 1.0
+        else:
+            assert s == scale
+    q3 = q.reshape(q.shape[:2] + (1,) * (5 - q.ndim) + q.shape[2:])
+    assert q3.is_contiguous(memory_format=torch.channels_last_3d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_quantize_act_kernel_keeps_a_nan_on_card(dtype, layout,
+                                                 cuda_device):
+    """One NaN in x: K6's dynamic scale is NaN, as its plain version's
+    (torch.amax) and JAX's (jnp.max), so K5's output on it is all NaN, as
+    the plain versions' is; q itself is not compared (a NaN's cast to s8
+    is undefined in the plain version)."""
+    from jmt_tpu_torch.ops.kernels import int8_conv as k5
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 16, 3, 6, 14, generator=gen).to(dtype)
+    x[1, 5, 2, 3, 8] = float("nan")
+    x = x.to(cuda_device)
+    if layout == "strided":
+        x = x[..., ::2]
+    q, s = k5.quantize_act(x)
+    want_q, want_s = k5.quantize_act_plain(x)
+    assert torch.isnan(s) and torch.isnan(want_s)
+    w_q = torch.randint(-127, 128, (8, 16, 3, 3, 3), generator=gen,
+                        dtype=torch.int8).to(cuda_device)
+    s_w = torch.full((8,), 1e-2, device=cuda_device)
+    pads = ((1, 1),) * 3
+    y = k5.int8_conv(q, w_q, s, s_w, 1, 1, pads, dtype)
+    want = k5.int8_conv_plain(want_q, w_q, want_s, s_w, 1, 1, pads, dtype)
+    assert torch.isnan(y).all() and torch.isnan(want).all()
+
+
+@pytest.mark.cuda
+def test_int8_kernels_refuse_what_they_do_not_take(cuda_device):
+    """Grouped weights, int64 or f16 operands, wrong ranks and an x not in
+    K6's layout raise on the card; nothing falls back."""
+    x_q, w_q, s_x, s_w, stride, dil, pads, k5 = _int8_operands(
+        "i3d_3x3x3_same", cuda_device)
+    bad = [
+        ((x_q, w_q[:, :8], s_x, s_w), ValueError),           # grouped
+        ((x_q.long(), w_q, s_x, s_w), TypeError),            # int64
+        ((x_q, w_q.long(), s_x, s_w), TypeError),
+        ((x_q.contiguous(), w_q, s_x, s_w), ValueError),     # NCTHW
+        ((x_q[None], w_q[None], s_x, s_w), ValueError),      # rank 6
+        ((x_q, w_q, s_x, s_w[:-1]), ValueError),
+        ((x_q, w_q, s_x.double(), s_w), ValueError),
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            k5.int8_conv(*args, stride, dil, pads, torch.float32)
+    with pytest.raises(TypeError):
+        k5.int8_conv(x_q, w_q, s_x, s_w, stride, dil, pads, torch.float16)
+    with pytest.raises(TypeError):
+        k5.quantize_act(torch.ones(2, 3, 4, device=cuda_device,
+                                   dtype=torch.float16))
+    with pytest.raises(ValueError):
+        k5.quantize_act(torch.ones(2, 3, 4, 4, 4, 4, device=cuda_device))
+    with pytest.raises(ValueError):
+        k5.quantize_act(torch.ones(2, 3, 4, device=cuda_device), -1.0)

@@ -19,7 +19,10 @@ modes (whose V differ by 0.026 here).
 ``StreamingSession`` fed the same server outputs as JAX's: the same traces
 bit for bit, the same errors and challenge files, and the traces of
 ``eval/stitch``. ``measure_latency`` returns JAX's keys; the command line
-serves the directory and refuses what is not ported.
+serves the directory, in int8 too (``--int8``, ``--int8-static``), and
+refuses what is not ported (``--tp``). int8 on the CPU: the server equals
+``make_eval_step(int8=True)``, and ``calibrate`` returns
+``make_calibration_step``'s scales and switches to static.
 """
 import json
 import os
@@ -284,11 +287,77 @@ def test_command_line_serves_the_experiment(experiment, capsys):
     assert "--compilation-cache is ignored" in err
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--int8"],
-                                  ["--int8-static"]])
+@pytest.mark.parametrize("flag", [["--tp", "2"]])
 def test_command_line_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         serve.main(flag + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--int8-static"])
+def test_command_line_serves_int8(experiment, flag, capsys, monkeypatch):
+    """The experiment served in int8: dynamic, or static with scales
+    calibrated on JAX's synthetic request before the server is built (so
+    each bucket is captured once)."""
+    built, capture = [], serve.InferenceServer._capture
+
+    def spy(self):
+        built.append((self.int8, self.int8_scales))
+        capture(self)
+
+    monkeypatch.setattr(serve.InferenceServer, "_capture", spy)
+    exp, _ = experiment
+    assert serve.main(["--exp-dir", exp, "--buckets", "1", "--device",
+                       "cpu", flag]) == 0
+    stats = json.loads(capsys.readouterr()[0].strip().splitlines()[-1])
+    assert stats["buckets"]["1"]["relay"]["p50_ms"] > 0
+    assert stats["buckets"]["1"]["device_resident"]["p50_ms"] > 0
+    mode, scales = built[0]
+    assert len(built) == 1
+    if flag == "--int8":
+        assert mode is True and scales is None
+    else:
+        model = serve.experiment_model(exp, device="cpu")
+        req = serve._calibration_request(16, 112, 45599, None)
+        assert mode == "static"
+        assert scales == serve.calibration_scales(model, *req, device="cpu")
+        assert len(scales) == 19  # the audio ResNet-18's eligible convs
+
+
+# ---------------------------------------------------------------------------
+# int8 serving
+# ---------------------------------------------------------------------------
+def test_int8_server_matches_int8_eval_step_and_calibrates(jax_model):
+    """On the CPU: ``InferenceServer(int8=True)`` equals
+    ``make_eval_step(int8=True)``; ``calibrate`` returns
+    ``make_calibration_step``'s scales, switches to static and changes
+    what ``predict`` returns, which then equals the static eval step."""
+    from jmt_tpu_torch.ops import quant
+    from jmt_tpu_torch.train import loops
+    from jmt_tpu_torch.train.state import TrainState
+    _, variables = jax_model
+    model = load_jax_variables(JMTModel(**CFG), variables)
+    state = TrainState(model=model, optimizer=None, trainable=[], frozen=[])
+    server = InferenceServer(model, seq=S, buckets=(2,), img_size=PX,
+                             device="cpu", int8=True)
+    req = _request(2, seed=3)
+    arrays = dict(zip(("clips", "audio", "wavlm"), req))
+    dyn = server.predict(*req)
+    want = loops.make_eval_step(model, device="cpu", int8=True)(state, arrays)
+    for got, w in zip(dyn, want):
+        np.testing.assert_array_equal(got, w.numpy())
+    calib = loops.make_calibration_step(model, device="cpu")(state, arrays)
+    scales = server.calibrate(*req)
+    assert scales == quant.act_scales_from_maxes(calib)
+    assert server.int8 == "static" and server.int8_scales == scales
+    stat = server.predict(*req)
+    assert not np.array_equal(stat[0], dyn[0])
+    want = loops.make_eval_step(model, device="cpu", int8=True,
+                                act_scales=scales)(state, arrays)
+    for got, w in zip(stat, want):
+        np.testing.assert_array_equal(got, w.numpy())
+    with pytest.raises(ValueError, match="'static'"):
+        InferenceServer(model, seq=S, buckets=(2,), img_size=PX,
+                        device="cpu", int8="dynamic")
 
 
 # ---------------------------------------------------------------------------
