@@ -118,6 +118,22 @@ failure raises and the script exits non-zero:
 12. cli_eval: ``--mode Eval`` on cli_train's directory: the components
    give the best epoch's valid CCC, the state the last epoch's (within
    1e-3); ``--eval-split test`` writes a ``{vid}.txt`` per video;
+12b. finetune: the finetuning path. ``cli.main`` on the flagship for one
+   epoch with every backbone trained (``finetune_bn`` batch,
+   ``remat_backbones`` by backbone, both ``use_more_*`` heavy
+   augmentations): per train step 12 K2 and no K1 or K3, per validation
+   forward 1 K1, 12 K2, 9 K3 (asserted), finite losses, every backbone
+   tensor moved and each BN counting one update a step. Then remat off,
+   by backbone and by stage on the finetuned flagship at S = 16 and the
+   largest B up to 8 at which the step without remat fits (reckoned from
+   its peaks at B = 1 and 2): each first step's launches split at the
+   backward, held to the step without remat (bitwise, or within ten
+   times the run-to-run gap of two steps without remat, the operations
+   without a deterministic version named), each mode's step p50 and peak
+   memory. The heavy augmentations' apply functions on the card against
+   the CPU (128 clips x 8 x 112 x 112; 128 wavs), with their device ms.
+   R3D-18 and MC3-18: card f32 against CPU f32, and one bf16 finetune
+   step each in the slice's configuration at B = 8, S = 16;
 13. serve: ``InferenceServer.from_experiment`` on cli_train's directory,
    buckets (1, 8): capture seconds and launches per bucket's graph (1 K1,
    12 K2, 9 K3, asserted), requests of 1, 3, 8 and 11 equal to the eager
@@ -2148,6 +2164,428 @@ def phase_cli_eval(exp: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# finetune: the flagship's backbones trained on the card (remat, the heavy
+# augmentations, the other R2D1 archs)
+# ---------------------------------------------------------------------------
+FINETUNE_FLAGS = ("--freeze_vision_R2D1", "False",
+                  "--freeze_vision_I3D", "False",
+                  "--freeze_audio_ResNet18", "False",
+                  "--finetune_bn", "batch", "--remat_backbones", "True",
+                  "--remat_granularity", "backbone",
+                  "--train_params__use_more_vision_data_augm", "True",
+                  "--train_params__use_more_audio_data_augm", "True")
+FINETUNE_BACKBONES = ("vision_r2d1", "vision_i3d", "audio_resnet18")
+# launches a train step of the finetuned flagship: the heavy audio
+# augmentation takes the log-mel's place (no K1) and the finetuned I3D's
+# batch-statistics BN the unfused inception path (no K3); K2's backward
+# is torch matmuls (attention_core_bwd), so its 12 are the forward's.
+# Without the heavy augmentations a step adds the log-mel's K1.
+FINETUNE_PER_STEP = dict(_NONE, fused_attention=12)
+FINETUNE_PER_STEP_PLAIN = dict(_NONE, log_mel=1, fused_attention=12)
+# (mode, remat, granularity) of the remat A/B
+REMAT_MODES = (("none", False, "backbone"), ("backbone", True, "backbone"),
+               ("stage", True, "stage"))
+REMAT_TIMED_STEPS = 5
+# the share of the card's memory a reckoned peak may take
+MEMORY_HEADROOM = 0.9
+# card f32 against CPU f32: the heavy augmentations (max |delta| against
+# max |CPU|: audio; normalized units: vision) and an R3D / MC3 forward
+AUG_AUDIO_REL_TOL = 1e-4
+AUG_VISION_ATOL = 2e-4
+VIDEO_ARCH_REL_TOL = 1e-4
+
+
+def finetune_config(model_config, finetune, **opt):
+    """``train_config`` with the backbones of ``finetune`` trained."""
+    cfg = train_config(model_config, **opt)
+    mp = cfg.model_params
+    mp.freeze_vision_R2D1 = "R2D1" not in finetune
+    mp.freeze_vision_I3D = "I3D" not in finetune
+    mp.freeze_audio_ResNet18 = "ResNet18" not in finetune
+    return cfg
+
+
+def finetune_state(model_config, finetune, **model_kw):
+    """A bf16 JMTModel finetuning ``finetune`` (batch-statistics BN, the
+    inception flag on), seed-0 weights, and its train state and step."""
+    from jmt_tpu_torch.models.jmt_model import JMTModel
+    from jmt_tpu_torch.train import loops
+    model = JMTModel(**model_config, finetune=finetune,
+                     i3d_fused_inception=True, dtype=torch.bfloat16,
+                     **model_kw)
+    state = loops.init_state(model, finetune_config(model_config, finetune),
+                             torch.Generator().manual_seed(0))
+    return model, state, loops.make_train_step(model)
+
+
+def backbone_moves(before: dict, after: dict, names) -> dict:
+    """Per backbone: its tensors (parameters, running statistics) that did
+    not move, and its BN's ``num_batches_tracked`` values."""
+    out = {}
+    for name in names:
+        pre = f"backbones.{name}."
+        keys = [k for k in after if k.startswith(pre)]
+        out[name] = {
+            "tensors": len(keys),
+            "not_moved": [k for k in keys
+                          if not k.endswith("num_batches_tracked")
+                          and torch.equal(after[k].cpu(), before[k].cpu())],
+            "num_batches_tracked": sorted({int(after[k]) for k in keys
+                                           if k.endswith(
+                                               "num_batches_tracked")})}
+    return out
+
+
+def phase_finetune_cli() -> None:
+    """The finetuned flagship through ``cli.main`` for one epoch: every
+    backbone trained with batch-statistics BN, remat by backbone, both
+    heavy augmentations. Per train step 12 K2 and no K1 or K3, per
+    validation forward 1 K1, 12 K2, 9 K3 (asserted); the losses finite;
+    every backbone tensor moved, each BN counting one update a step."""
+    from jmt_tpu_torch.train import runner as runner_mod
+    outd = CLI_EXPS + "_finetune"
+    exp = fresh(outd)
+    make_step, init = runner_mod.make_train_step, runner_mod.init_state
+    seen = {"losses": []}
+
+    def recording_step(model, **kw):
+        seen["step_flags"] = {k: v for k, v in kw.items() if k != "device"}
+        seen["remat_whole"] = model.backbones.remat_whole
+        step = make_step(model, **kw)
+
+        def call(*args, **kwargs):
+            out = step(*args, **kwargs)
+            seen["losses"].append(float(out[0]))
+            return out
+        return call
+
+    def snapshotting_init(model, *args, **kwargs):
+        state = init(model, *args, **kwargs)
+        seen["before"] = {k: v.detach().cpu().clone()
+                          for k, v in model.state_dict().items()}
+        return state
+
+    runner_mod.make_train_step = recording_step
+    runner_mod.init_state = snapshotting_init
+    try:
+        out, launches, seconds = run_cli(cli_argv(
+            outd, *FLAGSHIP_FLAGS, *FINETUNE_FLAGS, epochs=1))
+    finally:
+        runner_mod.make_train_step, runner_mod.init_state = make_step, init
+    steps, val = cli_forwards(0, "train"), cli_forwards(0, "val")
+    moves = backbone_moves(seen["before"], final_weights(exp),
+                           FINETUNE_BACKBONES)
+    emit({"phase": "finetune_cli", "seconds": seconds, "steps": steps,
+          "val_forwards": val, "losses": seen["losses"],
+          "step_flags": seen["step_flags"],
+          "remat_whole": list(seen["remat_whole"]), "backbones": moves,
+          **out, **launches})
+    for rec in epoch_records(exp):
+        emit({"phase": "finetune_cli_epoch", **rec})
+    want = {k: steps * FINETUNE_PER_STEP[k]
+            + val * PER_FORWARD["flagship"][k] for k in _NONE}
+    if launches != want:
+        raise AssertionError(f"finetune_cli: expected launches {want} "
+                             f"({steps} steps, {val} eval forwards), got "
+                             f"{launches}")
+    if not (len(seen["losses"]) == steps
+            and np.isfinite(seen["losses"]).all()
+            and seen["step_flags"] == {"more_vision_augm": True,
+                                       "more_audio_augm": True}
+            and set(seen["remat_whole"]) >= {"R2D1", "I3D", "ResNet18"}):
+        raise AssertionError(f"finetune_cli: losses {seen['losses']}, "
+                             f"flags {seen['step_flags']}, remat "
+                             f"{seen['remat_whole']}")
+    bad = {k: v for k, v in moves.items()
+           if v["not_moved"] or v["num_batches_tracked"] != [steps]}
+    if bad:
+        raise AssertionError(f"finetune_cli: backbones that did not move, "
+                             f"or whose BN did not count {steps} updates: "
+                             f"{bad}")
+
+
+def split_launches(step, *args, **kwargs) -> tuple:
+    """step(...)'s result and its launches (counts set to 0 before),
+    split at ``loss.backward()`` into forward and backward."""
+    from jmt_tpu_torch.ops.kernels import launch_counts
+    real, split = torch.Tensor.backward, {}
+
+    def backward(self, *a, **k):
+        split["forward"] = launch_counts()
+        real(self, *a, **k)
+    torch.Tensor.backward = backward
+    try:
+        out, total = counted(lambda: step(*args, **kwargs))
+    finally:
+        torch.Tensor.backward = real
+    fwd = split["forward"]
+    return out, fwd, {k: total[k] - fwd[k] for k in total}
+
+
+def step_peak_gib(step, state, arrays, factors) -> float:
+    """Peak memory of one train step (after a warm-up step)."""
+    step(state, arrays, color_factors=factors)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, arrays, color_factors=factors)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def remat_fit_batch() -> tuple:
+    """(B, reckoning): the no-remat finetune step's peak at B = 1 and 2
+    (S = 16), a line in B; B = TRAIN_B if the line's value there stays
+    within MEMORY_HEADROOM of the card, else the largest B that does."""
+    from jmt_tpu_torch.data.transforms import sample_color_factors
+    model, state, step = finetune_state(
+        FLAGSHIP_CONFIG, ("R2D1", "I3D", "ResNet18"))
+    peaks = {}
+    for b in (1, 2):
+        arrays = {k: torch.from_numpy(x).cuda() for k, x in train_arrays(
+            np.random.default_rng(b), b, TRAIN_S).items()}
+        factors = sample_color_factors(torch.Generator().manual_seed(b),
+                                       b * TRAIN_S)
+        peaks[b] = step_peak_gib(step, state, arrays, factors)
+    del model, state, step
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    per_b, base = peaks[2] - peaks[1], 2 * peaks[1] - peaks[2]
+    limit = MEMORY_HEADROOM * total
+    b_fit = TRAIN_B if base + per_b * TRAIN_B <= limit else \
+        int((limit - base) // per_b)
+    reck = {"peak_gib_b1": peaks[1], "peak_gib_b2": peaks[2],
+            "gib_per_batch_row": per_b, "card_gib": total,
+            "reckoned_peak_gib_at_train_b": base + per_b * TRAIN_B,
+            "batch": b_fit}
+    emit({"phase": "finetune_remat_fit", **reck})
+    if b_fit < 1:
+        raise AssertionError(f"finetune: no batch fits without remat {reck}")
+    return b_fit, reck
+
+
+def _first_step(mode_kw, arrays, factors) -> dict:
+    """One finetune step of the flagship from seed-0 weights with the
+    given colour factors and torch's RNG seeded (the TCN's dropout),
+    deterministic algorithms on (warnings only): loss, gradients and BN
+    buffers on the host, the launches split at the backward, the names of
+    the operations that had no deterministic version."""
+    import warnings
+    model, state, step = finetune_state(
+        FLAGSHIP_CONFIG, ("R2D1", "I3D", "ResNet18"), **mode_kw)
+    torch.manual_seed(0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            (loss, _, _), fwd, bwd = split_launches(
+                step, state, arrays, color_factors=factors)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught
+                     if "does not have a deterministic" in str(w.message)})
+    out = {"model": model, "state": state, "step": step, "loss": float(loss),
+           "forward_launches": fwd, "backward_launches": bwd,
+           "nondeterministic_ops": nondet,
+           "grads": {n: p.grad.detach().float().cpu()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None},
+           "buffers": {k: v.detach().cpu().clone()
+                       for k, v in model.state_dict().items()
+                       if "running_" in k or "num_batches" in k}}
+    return out
+
+
+def gaps(a: dict, b: dict) -> dict:
+    """How far run b's first step is from run a's: loss, the largest
+    gradient delta over the largest |gradient|, the largest running
+    statistic delta, and whether every BN counted alike."""
+    g = max(float((a["grads"][n] - b["grads"][n]).abs().max())
+            for n in a["grads"])
+    gmax = max(float(x.abs().max()) for x in a["grads"].values())
+    stats = [k for k in a["buffers"] if "running_" in k]
+    return {"loss": abs(a["loss"] - b["loss"]), "grad_rel": g / gmax,
+            "running_stats": max(float((a["buffers"][k] - b["buffers"][k])
+                                       .abs().max()) for k in stats),
+            "num_batches_tracked_equal": all(
+                torch.equal(a["buffers"][k], b["buffers"][k])
+                for k in a["buffers"] if "num_batches" in k),
+            "same_gradient_set": a["grads"].keys() == b["grads"].keys()}
+
+
+def finetune_inputs(b: int) -> tuple:
+    """A train batch (B = b, S = TRAIN_S) on the card and its colour
+    factors, from fixed seeds."""
+    from jmt_tpu_torch.data.transforms import sample_color_factors
+    arrays = {k: torch.from_numpy(x).cuda() for k, x in train_arrays(
+        np.random.default_rng(8), b, TRAIN_S).items()}
+    return arrays, sample_color_factors(torch.Generator().manual_seed(8),
+                                        b * TRAIN_S)
+
+
+def time_remat_mode(mode: str, run: dict, arrays, factors, smi: str
+                    ) -> None:
+    """The step p50 over REMAT_TIMED_STEPS and the peak memory of a mode,
+    its model and state taken over from its first step ``run``."""
+    model, state, step = run.pop("model"), run.pop("state"), run.pop("step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = sorted(events_ms(lambda: step(state, arrays,
+                                          color_factors=factors))[1]
+                   for _ in range(REMAT_TIMED_STEPS))
+    emit({"phase": "finetune_remat", "mode": mode,
+          "batch": arrays["labels_v"].shape[0], "seq": TRAIN_S,
+          "nvidia_smi": smi, "p50_ms": times[len(times) // 2],
+          "min_ms": times[0], "max_ms": times[-1],
+          "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "loss": run["loss"], "forward_launches": run["forward_launches"],
+          "backward_launches": run["backward_launches"],
+          "nondeterministic_ops": run["nondeterministic_ops"]})
+    del model, state, step
+    torch.cuda.empty_cache()
+
+
+def phase_finetune_remat() -> None:
+    """The flagship finetuned whole (batch-statistics BN) at S = 16 and
+    the largest B up to TRAIN_B at which the step without remat fits
+    (``remat_fit_batch``): without remat, by backbone and by stage, each
+    from seed-0 weights. The first step of each with cuDNN's
+    deterministic algorithms: launches split at the backward (1 K1, 12 K2
+    forward, none backward, asserted), held to the step without remat
+    and to a second run without remat (the run-to-run gap): bitwise, or
+    within ten times the run-to-run gap. Then each mode's step p50 over
+    REMAT_TIMED_STEPS and its peak memory; where B had to shrink, the
+    remat modes again at TRAIN_B."""
+    b, _ = remat_fit_batch()
+    smi = nvidia_smi()
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for b_run in sorted({b, TRAIN_B}):
+            arrays, factors = finetune_inputs(b_run)
+            for mode, remat, gran in REMAT_MODES:
+                if b_run != b and not remat:
+                    continue
+                run = _first_step(dict(remat=remat, remat_granularity=gran),
+                                  arrays, factors)
+                if (run["forward_launches"] != FINETUNE_PER_STEP_PLAIN
+                        or any(run["backward_launches"].values())):
+                    raise AssertionError(
+                        f"finetune remat {mode}: launches forward "
+                        f"{run['forward_launches']}, backward "
+                        f"{run['backward_launches']}")
+                time_remat_mode(mode, run, arrays, factors, smi)
+                if b_run == b:
+                    runs[mode] = run
+            if b_run == b:
+                again = _first_step(dict(remat=False), arrays, factors)
+                for k in ("model", "state", "step"):
+                    again.pop(k)
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    rerun = gaps(runs["none"], again)
+    exact = {"loss": 0.0, "grad_rel": 0.0, "running_stats": 0.0,
+             "num_batches_tracked_equal": True, "same_gradient_set": True}
+    for mode in ("backbone", "stage"):
+        gap = gaps(runs["none"], runs[mode])
+        emit({"phase": "finetune_remat_vs_none", "mode": mode, "batch": b,
+              "gap": gap, "rerun_gap": rerun, "bitwise": gap == exact,
+              "rerun_bitwise": rerun == exact,
+              "nondeterministic_ops": runs["none"]["nondeterministic_ops"]})
+        ok = gap["num_batches_tracked_equal"] and gap["same_gradient_set"]
+        for k in ("loss", "grad_rel", "running_stats"):
+            ok = ok and gap[k] <= 10 * rerun[k]
+        if not ok:
+            raise AssertionError(f"finetune remat {mode} against none: "
+                                 f"{gap}, run to run {rerun}")
+
+
+def phase_finetune_augment() -> None:
+    """Each heavy augmentation's apply function on the card, f32, against
+    its own CPU run on the same parameters: vision at 128 clips x 8 frames
+    x 112 x 112 (normalized units, atol AUG_VISION_ATOL), audio at 128 x
+    45,599 samples (AUG_AUDIO_REL_TOL of max |CPU|); each one's device
+    time (CUDA events)."""
+    from jmt_tpu_torch.data.transforms import (more_vision_augment,
+                                               sample_vision_augment)
+    from jmt_tpu_torch.ops.audio_augment import (more_audio_augment,
+                                                 sample_audio_augment)
+    rng, gen = np.random.default_rng(9), torch.Generator().manual_seed(9)
+    n = TRAIN_B * TRAIN_S
+    clips, audio, _ = request(rng, TRAIN_B, TRAIN_S)
+    clips = torch.from_numpy(clips.reshape(n, *clips.shape[2:]))
+    audio = torch.from_numpy(audio.reshape(n, -1))
+    cases = (("more_vision_augment", more_vision_augment, clips,
+              sample_vision_augment(gen, n * clips.shape[1])),
+             ("more_audio_augment", more_audio_augment, audio,
+              sample_audio_augment(gen, n)))
+    for name, fn, x, params in cases:
+        want = fn(x, params)
+        xc, pc = x.cuda(), params.to("cuda")
+        got = fn(xc, pc).cpu()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        ms = time_ms(lambda: fn(xc, pc), iters=10, warmup=2)
+        emit({"phase": "finetune_augment", "name": name,
+              "shape": list(x.shape), "out_shape": list(want.shape),
+              "max_abs_err": err, "max_abs_cpu": scale, "ms": ms})
+        ok = err <= AUG_VISION_ATOL if name == "more_vision_augment" \
+            else err <= AUG_AUDIO_REL_TOL * scale
+        if not (ok and torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: card against CPU {err} "
+                                 f"(max |CPU| {scale})")
+
+
+def phase_finetune_video_archs() -> None:
+    """R3D-18 and MC3-18: an eval forward of 2 clips (8 x 112 x 112) on
+    the card in f32 against the CPU's (VIDEO_ARCH_REL_TOL of max |CPU|);
+    then one bf16 finetune step of the slice's configuration with that
+    R2D1 arch (the R2D1 trained with batch-statistics BN) at B = TRAIN_B,
+    S = TRAIN_S: launches (1 K1, 10 K2), ms, the loss finite, every R2D1
+    tensor moved and its BN counting one update."""
+    from jmt_tpu_torch.models.common import init_parameters
+    from jmt_tpu_torch.models.video_resnet import VideoResNet
+    x = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(2, 3, 8, 112, 112)).astype(np.float32))
+    arrays = {k: torch.from_numpy(v).cuda() for k, v in train_arrays(
+        np.random.default_rng(11), TRAIN_B, TRAIN_S).items()}
+    for arch in ("r3d", "mc3"):
+        net = init_parameters(VideoResNet(arch),
+                              torch.Generator().manual_seed(0))
+        with torch.inference_mode():
+            want = net(x)
+            with full_fp32():
+                got = net.cuda()(x.cuda()).cpu()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        del net
+        model, state, step = finetune_state(SLICE_CONFIG, ("R2D1",),
+                                            r2d1_arch=arch)
+        before = snapshot(model)
+        step(state, arrays)            # warm-up: cuDNN's first calls
+        ((loss, _, _), ms), launches = counted(
+            lambda: events_ms(lambda: step(state, arrays)))
+        moves = backbone_moves(before, model.state_dict(), ("vision_r2d1",))
+        emit({"phase": "finetune_video_arch", "arch": arch,
+              "forward_out": list(want.shape), "card_f32_vs_cpu_f32": err,
+              "max_abs_cpu": scale, "batch": TRAIN_B, "seq": TRAIN_S,
+              "step_ms": ms, "loss": float(loss), "backbone": moves,
+              **launches})
+        if not err <= VIDEO_ARCH_REL_TOL * scale:
+            raise AssertionError(f"{arch}: card f32 against CPU f32 {err} "
+                                 f"(max |CPU| {scale})")
+        if (launches != PER_FORWARD["slice"] or not math.isfinite(float(loss))
+                or moves["vision_r2d1"]["not_moved"]
+                or moves["vision_r2d1"]["num_batches_tracked"] != [2]):
+            raise AssertionError(f"{arch} finetune step: {launches}, loss "
+                                 f"{float(loss)}, {moves}")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # cli_files_pretrained: the recipe of record from files (pretrained
 # backbones, an Affwild2-layout tree, native decode)
 # ---------------------------------------------------------------------------
@@ -3025,6 +3463,17 @@ def main() -> int:
         phase_cli_resume(exp)
     with phase("cli_eval"):
         phase_cli_eval(exp)
+    torch.cuda.empty_cache()
+    with phase("finetune_cli"):
+        phase_finetune_cli()
+    torch.cuda.empty_cache()
+    with phase("finetune_remat"):
+        phase_finetune_remat()
+    with phase("finetune_augment"), full_fp32():
+        phase_finetune_augment()
+    with phase("finetune_video_archs"):
+        phase_finetune_video_archs()
+    torch.cuda.empty_cache()
     with phase("serve"):
         phase_serve(exp)
     with phase("serve_int8"):

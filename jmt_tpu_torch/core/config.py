@@ -177,8 +177,8 @@ class ModelParams:
     # compute dtype of the backbones and the fusion ("bfloat16" |
     # "float32"); parameters stay float32
     compute_dtype: str = "bfloat16"
-    # rematerialize the backbones in the backward (not ported: raises in
-    # model_from_config)
+    # rematerialize the finetuned backbones in the backward: each whole
+    # ("backbone") or by residual block / inception module ("stage")
     remat_backbones: bool = False
     remat_granularity: str = "backbone"
     # I3D input resolution: 224 = the reference's 112 -> 224 upsample

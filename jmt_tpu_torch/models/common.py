@@ -7,12 +7,14 @@ follow the reference torch modules (``weight``, ``bias``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def cast(x: Optional[torch.Tensor], dtype: Optional[torch.dtype]
@@ -52,6 +54,26 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.float(), self.weight.shape, self.weight,
                          self.bias, self.eps)
         return y.to(self.dtype) if self.dtype is not None else y
+
+
+def _recompute_contexts():
+    from jmt_tpu_torch.ops.norm import recomputing
+    return contextlib.nullcontext(), recomputing()
+
+
+def remat(unit: nn.Module, *args, **kwargs):
+    """``unit(*args, **kwargs)``, rematerialized when a gradient flows
+    into its parameters: ``torch.utils.checkpoint`` (non-reentrant) keeps
+    no activation of it for the backward and runs it again there, with
+    the RNG states replayed (the same dropout masks) and BN's buffers left
+    alone (``ops/norm.recomputing``). A frozen unit, or any unit under
+    ``no_grad`` / ``inference_mode``, runs as it is. The counterpart of
+    JAX's ``nn.remat``, which changes no number either."""
+    if torch.is_grad_enabled() and any(p.requires_grad
+                                       for p in unit.parameters()):
+        return checkpoint(unit, *args, use_reentrant=False,
+                          context_fn=_recompute_contexts, **kwargs)
+    return unit(*args, **kwargs)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

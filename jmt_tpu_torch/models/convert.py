@@ -234,25 +234,41 @@ def inv_resnet18(tree, prefix: str = "") -> SD:
     return t.sd
 
 
-def inv_video_resnet(tree, prefix: str = "") -> SD:
-    """R(2+1)D-18 (arch 'r2plus1d') variables."""
+def video_arch(tree) -> str:
+    """The key layout of a JAX VideoResNet's variables: "r2plus1d" (a
+    factorized stem) or "r3d" (one stem conv; MC3's layout too)."""
+    return "r2plus1d" if "spatial_conv" in tree["params"]["stem"] else "r3d"
+
+
+def inv_video_resnet(tree, prefix: str = "", arch: str = "r2plus1d") -> SD:
+    """R(2+1)D-18, R3D-18 or MC3-18 (``arch``) variables, torchvision's
+    key layout: R(2+1)D's stem ``stem.{0,1,3,4}`` and block convs
+    ``conv{1,2}.0.{0,1,3}``; R3D's and MC3's stem ``stem.{0,1}`` and
+    block convs ``conv{1,2}.0``, one conv each."""
     t = _Inv(tree)
 
-    def conv_2plus1d(torch_prefix: str, *path):
-        t.conv(f"{torch_prefix}.0", *path, "spatial_conv")
-        t.bn(f"{torch_prefix}.1", *path, "spatial_bn")
-        t.conv(f"{torch_prefix}.3", *path, "temporal_conv")
+    def block_conv(torch_prefix: str, *path):
+        if arch == "r2plus1d":
+            t.conv(f"{torch_prefix}.0", *path, "spatial_conv")
+            t.bn(f"{torch_prefix}.1", *path, "spatial_bn")
+            t.conv(f"{torch_prefix}.3", *path, "temporal_conv")
+        else:
+            t.conv(torch_prefix, *path, "conv")
 
-    t.conv(f"{prefix}stem.0", "stem", "spatial_conv")
-    t.bn(f"{prefix}stem.1", "stem", "spatial_bn")
-    t.conv(f"{prefix}stem.3", "stem", "temporal_conv")
-    t.bn(f"{prefix}stem.4", "stem", "temporal_bn")
+    if arch == "r2plus1d":
+        t.conv(f"{prefix}stem.0", "stem", "spatial_conv")
+        t.bn(f"{prefix}stem.1", "stem", "spatial_bn")
+        t.conv(f"{prefix}stem.3", "stem", "temporal_conv")
+        t.bn(f"{prefix}stem.4", "stem", "temporal_bn")
+    else:
+        t.conv(f"{prefix}stem.0", "stem", "conv")
+        t.bn(f"{prefix}stem.1", "stem", "bn")
     for li in range(1, 5):
         for bi in range(2):
             tp, fp = f"{prefix}layer{li}.{bi}", f"layer{li}_{bi}"
-            conv_2plus1d(f"{tp}.conv1.0", fp, "conv1")
+            block_conv(f"{tp}.conv1.0", fp, "conv1")
             t.bn(f"{tp}.conv1.1", fp, "bn1")
-            conv_2plus1d(f"{tp}.conv2.0", fp, "conv2")
+            block_conv(f"{tp}.conv2.0", fp, "conv2")
             t.bn(f"{tp}.conv2.1", fp, "bn2")
             if t.has(fp, "downsample_conv"):
                 t.conv(f"{tp}.downsample.0", fp, "downsample_conv")
@@ -347,10 +363,10 @@ def inv_tsav(tree) -> SD:
              "batch_stats": stats["audio_resnet18"]},
             prefix="audio_resnet18.resnet."))
     if "vision_r2d1" in params:
-        out.update(inv_video_resnet(
-            {"params": params["vision_r2d1"],
-             "batch_stats": stats["vision_r2d1"]},
-            prefix="vision_r2d1.r2plus1d."))
+        r2d1 = {"params": params["vision_r2d1"],
+                "batch_stats": stats["vision_r2d1"]}
+        out.update(inv_video_resnet(r2d1, prefix="vision_r2d1.r2plus1d.",
+                                    arch=video_arch(r2d1)))
     if "vision_r2d1_fc" in params:
         out.update(inv_r2d1_flatten_fc(params["vision_r2d1_fc"],
                                        prefix="vision_r2d1_fc"))
@@ -396,7 +412,8 @@ def _converters():
         i3d.InceptionModule: inv_inception_module,
         tcn.TemporalConvNet: lambda t: inv_tcn(t["params"]),
         resnet18.ResNet18: inv_resnet18,
-        video_resnet.VideoResNet: inv_video_resnet,
+        video_resnet.VideoResNet:
+            lambda t: inv_video_resnet(t, arch=video_arch(t)),
         fusion.TwoTransformers: lambda t: inv_two_transformers(t["params"]),
         fusion.SingleBackbonePretrainer: lambda t: inv_pretrainer(t["params"]),
         jmt.JointMultimodalTransformer:

@@ -6,6 +6,11 @@ without bias, BN eps 1e-3 and momentum 0.01, ReLU), ``InceptionModule``,
 (N, T-1, 1024)) and ``I3DTCN`` (I3D features -> 4-layer TCN(1024 -> 512,
 k=5, dropout 0.1) -> (N, T-1, 512)).
 
+``remat_stages`` (JAX's ``remat_granularity="stage"``): each inception
+module and each trunk-level ``Unit3D`` is rematerialized when it trains
+(``models/common.remat``); the TCN is not, nor the stem with its
+upsample fold (JAX's remat wraps ``Unit3D.__call__`` only).
+
 Torch layout (N, C, T, H, W). After the stem the trunk runs in
 ``torch.channels_last_3d`` memory: cuDNN gets its NDHWC layout and the
 inception kernel reads (N, T, H, W, C) rows without a transpose.
@@ -22,7 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from jmt_tpu_torch.models.common import ConvNd, cast
+from jmt_tpu_torch.models.common import ConvNd, cast, remat
 from jmt_tpu_torch.models.tcn import TemporalConvNet
 from jmt_tpu_torch.ops.conv import (avg_pool, conv3d_stem_upsample2x,
                                     conv_nd, max_pool_same, tf_same_pads)
@@ -183,8 +188,10 @@ class InceptionI3d(nn.Module):
     tail AvgPool3d is Mixed_5c's ``avg_tail``."""
 
     def __init__(self, fused_inception: bool = False,
+                 remat_stages: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.remat_stages = remat_stages
         self.Conv3d_1a_7x7 = Unit3D(3, 64, (7, 7, 7), (1, 2, 2), dtype=dtype)
         self._plan = []
         cin, pending = 64, None
@@ -212,21 +219,26 @@ class InceptionI3d(nn.Module):
         """stem_upsample2x: x is the half-resolution clip, and the stem is
         the exact fold of (2x bilinear upsample o conv)."""
         stem = self.Conv3d_1a_7x7
-        h = stem.upsampled2x(x) if stem_upsample2x else stem(x)
+        h = stem.upsampled2x(x) if stem_upsample2x else self._stage(stem, x)
         h = h.contiguous(memory_format=CHANNELS_LAST)
         for kind, arg in self._plan:
             h = max_pool_same(h, *arg) if kind == "pool" else \
-                getattr(self, arg)(h)
+                self._stage(getattr(self, arg), h)
         return h
+
+    def _stage(self, unit: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return remat(unit, x) if self.remat_stages else unit(x)
 
 
 class I3DTCN(nn.Module):
     """I3D features -> TCN: (N, 3, T, H, W) -> (N, T-1, 512)."""
 
     def __init__(self, fused_inception: bool = False,
+                 remat_stages: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.i3d_WSDDA = InceptionI3d(fused_inception, dtype=dtype)
+        self.i3d_WSDDA = InceptionI3d(fused_inception, remat_stages,
+                                      dtype=dtype)
         self.temporal = TemporalConvNet(1024, (512, 512, 512, 512),
                                         kernel_size=5, dropout=0.1,
                                         dtype=dtype)

@@ -37,6 +37,7 @@ from jmt_tpu_torch.models.fusion import (SingleBackbonePretrainer,
 from jmt_tpu_torch.models.intra_modal import (FcLayer,
                                               IntraModalTransformerFusion)
 from jmt_tpu_torch.models.tsav import TwoStreamBackbones
+from jmt_tpu_torch.models.video_resnet import ARCHS
 from jmt_tpu_torch.ops.norm import TorchBatchNorm
 
 
@@ -58,19 +59,25 @@ class JMTModel(nn.Module):
                  joint_modalities: str = "TRANSFORMER",
                  output_format: str = "SELF_ATTEN", goal: str = "TRAINING",
                  num_heads: int = 1, num_layers: int = 1,
+                 r2d1_arch: str = "r2plus1d",
                  r2d1_reduce: str = "MAX", i3d_input_size: int = 224,
                  i3d_fused_inception: Union[bool, str] = "auto",
                  i3d_chunk: int = 0, v_dropout: float = 0.0,
                  a_dropout: float = 0.0, finetune: Sequence[str] = (),
-                 finetune_bn: str = "batch",
+                 finetune_bn: str = "batch", remat: bool = False,
+                 remat_granularity: str = "backbone",
                  fc_transpose_quirk: bool = False,
                  dtype: Optional[torch.dtype] = None):
-        """i3d_fused_inception: True runs the nine inception modules as
+        """r2d1_arch: the R2D1 backbone's video ResNet-18, "r2plus1d",
+        "r3d" or "mc3" (a model field, as in JAX, not a config key).
+        i3d_fused_inception: True runs the nine inception modules as
         kernel K3; "auto" resolves to False, as in the JAX package, until a
         measurement on this card says otherwise (``PERF.md`` records both
         paths' times). finetune: the backbones (R2D1, I3D, ResNet18) that
         train; finetune_bn: "batch" (train-mode BN in them) or "frozen"
-        (running statistics)."""
+        (running statistics). remat, remat_granularity: rematerialize the
+        finetuned backbones in the backward ("backbone" or "stage",
+        ``models/tsav.TwoStreamBackbones``)."""
         super().__init__()
         self.vision_backbones = tuple(vision_backbones)
         self.audio_backbones = tuple(audio_backbones)
@@ -87,13 +94,16 @@ class JMTModel(nn.Module):
             raise NotImplementedError(
                 f"vision_backbones={self.vision_backbones}: a subset of "
                 "('R2D1', 'I3D'), non-empty in training, is ported")
+        if r2d1_arch not in ARCHS:
+            raise ValueError(f"r2d1_arch={r2d1_arch!r}: one of {ARCHS}")
         fused = False if i3d_fused_inception == "auto" \
             else bool(i3d_fused_inception)
         self.backbones = TwoStreamBackbones(
             vision_backbones=self.vision_backbones,
-            audio_backbones=self.audio_backbones,
+            audio_backbones=self.audio_backbones, r2d1_arch=r2d1_arch,
             r2d1_reduce=r2d1_reduce, i3d_input_size=i3d_input_size,
-            i3d_fused_inception=fused, i3d_chunk=i3d_chunk, dtype=dtype)
+            i3d_fused_inception=fused, i3d_chunk=i3d_chunk, remat=remat,
+            remat_granularity=remat_granularity, dtype=dtype)
 
         self.fc_layer_for_video_concat = None
         self.transformer_visio_modality_fusion = None
@@ -181,14 +191,12 @@ def model_from_config(cfg) -> JMTModel:
     backbones: the ``init_w_*`` policy loads its pretrained ones later,
     before the freeze partition (``models/pretrained.apply_pretrained``,
     run by ``train/runner.Runner.initialize``). Raises
-    ``NotImplementedError`` naming the key for what the port leaves out:
-    ``remat_backbones``, a data mesh of more than one card
-    (``mesh_data_parallel``), the heavy augmentations
-    (``use_more_vision_data_augm`` / ``use_more_audio_data_augm``)."""
+    ``NotImplementedError`` for what the port leaves out: a data mesh of
+    more than one card (``mesh_data_parallel``). The heavy augmentations
+    (``use_more_vision_data_augm`` / ``use_more_audio_data_augm``) are
+    the train step's (``train/runner.Runner`` reads ``train_params``'
+    flags); the val and test flags have no effect, as in JAX."""
     mp = cfg.model_params
-    if mp.remat_backbones:
-        raise NotImplementedError("model_params.remat_backbones: not "
-                                  "ported yet")
     n_mesh = cfg.mesh_data_parallel
     if n_mesh == -1:
         n_mesh = max(torch.cuda.device_count(), 1)
@@ -196,11 +204,6 @@ def model_from_config(cfg) -> JMTModel:
         raise NotImplementedError(
             f"mesh_data_parallel={cfg.mesh_data_parallel} resolves to "
             f"{n_mesh} cards: the port trains on one device")
-    for split in ("train_params", "val_params", "test_params"):
-        for key in ("use_more_vision_data_augm", "use_more_audio_data_augm"):
-            if getattr(getattr(cfg, split), key):
-                raise NotImplementedError(f"{split}.{key}: the heavy "
-                                          "augmentations are not ported yet")
     return JMTModel(
         vision_backbones=tuple(mp.l_vision_backbones),
         audio_backbones=tuple(mp.l_audio_backbones),
@@ -213,5 +216,6 @@ def model_from_config(cfg) -> JMTModel:
         i3d_fused_inception=mp.i3d_fused_inception,
         i3d_chunk=mp.i3d_chunk, v_dropout=mp.v_dropout,
         a_dropout=mp.a_dropout, finetune=mp.finetune(),
-        finetune_bn=mp.finetune_bn,
+        finetune_bn=mp.finetune_bn, remat=mp.remat_backbones,
+        remat_granularity=mp.remat_granularity,
         dtype=torch.bfloat16 if mp.compute_dtype == "bfloat16" else None)

@@ -14,14 +14,37 @@ A new module starts in eval mode, as the JAX module's default is the
 running statistics; ``model.train()`` switches it. The state-dict keys are
 torch BatchNorm's (``weight``, ``bias``, ``running_mean``,
 ``running_var``, ``num_batches_tracked``).
+
+Under ``recomputing()`` (the recompute of a rematerialized unit, which
+runs its forward a second time in the backward) a train-mode BN
+normalizes with the same batch statistics but leaves its buffers alone:
+the momentum update goes to scratch copies and the count stays, so a
+rematerialized step updates them once, as JAX's remat does.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Iterator, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """BN in train mode within leaves its running statistics and count as
+    they are (the recompute context of ``models/common.remat``)."""
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
 
 
 class TorchBatchNorm(nn.Module):
@@ -50,9 +73,14 @@ class TorchBatchNorm(nn.Module):
         self.num_batches_tracked.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        mean, var = self.running_mean, self.running_var
+        if self.training and getattr(_RECOMPUTE, "on", False):
+            # the same call on scratch buffers: the same batch statistics
+            # and kernel as the first forward, no update
+            mean, var = mean.clone(), var.clone()
+        elif self.training:
             self.num_batches_tracked.add_(1)
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+        y = F.batch_norm(x.float(), mean, var,
                          self.weight, self.bias, training=self.training,
                          momentum=self.momentum, eps=self.eps)
         return y.to(self.dtype) if self.dtype is not None else y

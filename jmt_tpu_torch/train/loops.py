@@ -2,8 +2,11 @@
 
 Counterpart of ``jmt_tpu/train/loops.py``. One step takes raw uint8 clips,
 raw audio, wavLM features and labels, and runs the whole pipeline on the
-device: the colour augmentation (train step), the log-mel front end (one
-launch of kernel K1 for all B*S wavs on the card), the backbones over the
+device: the colour augmentation (train step; or with
+``use_more_vision_data_augm`` the heavy per-frame vision augmentation in
+its place), the log-mel front end (one launch of kernel K1 for all B*S
+wavs on the card; with ``use_more_audio_data_augm`` the train step's
+heavy audio augmentation in its place, mel magnitudes without K1), the backbones over the
 flattened (B*S) clips, the fusion, the CCC loss of V plus that of A, the
 backward and the optimizer step. Parameters stay fp32; the model computes
 in its ``dtype`` (bf16 on the card).
@@ -29,10 +32,16 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
-from jmt_tpu_torch.data.transforms import (preprocess_clips,
-                                           sample_color_factors)
+from jmt_tpu_torch.data.transforms import (VisionAugment,
+                                           more_vision_augment,
+                                           preprocess_clips,
+                                           sample_color_factors,
+                                           sample_vision_augment)
 from jmt_tpu_torch.device import resolve_device
 from jmt_tpu_torch.ops import quant
+from jmt_tpu_torch.ops.audio_augment import (AudioAugment,
+                                             more_audio_augment,
+                                             sample_audio_augment)
 from jmt_tpu_torch.ops.ccc import ccc_loss
 from jmt_tpu_torch.ops.mel import log_mel
 from jmt_tpu_torch.train.optim import build_optimizer
@@ -61,7 +70,10 @@ def _on(arrays: Arrays, device: torch.device) -> Dict[str, torch.Tensor]:
 def preprocess(model, arrays: Dict[str, torch.Tensor],
                color_factors: Optional[Tuple[torch.Tensor,
                                              torch.Tensor]] = None,
-               more_vision_augm: bool = False, more_audio_augm: bool = False
+               more_vision_augm: bool = False, more_audio_augm: bool = False,
+               vision_augment: Optional[VisionAugment] = None,
+               audio_augment: Optional[AudioAugment] = None,
+               generator: Optional[torch.Generator] = None
                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """arrays: ``clips`` uint8 (B,S,8,H,W,3), ``audio`` f32 (B,S,L).
 
@@ -71,25 +83,42 @@ def preprocess(model, arrays: Dict[str, torch.Tensor],
     in the model's compute dtype, or None when the model does not use it.
     ``color_factors``: the (B*S,) brightness and contrast factors of the
     train step's colour augmentation (``sample_color_factors``); None for
-    the eval forward. The heavier augmentations (``more_vision_augm``,
-    ``more_audio_augm``) are not ported yet and raise.
+    the eval forward. The heavy augmentations of the train step, each in
+    the place of its plain counterpart as in JAX: ``more_vision_augm``
+    (``data/transforms.more_vision_augment``, per frame; the colour
+    factors are not used) and ``more_audio_augm``
+    (``ops/audio_augment.more_audio_augment``: spec (B,S,64,128) mel
+    magnitudes, no K1), with the given parameters, else drawn from
+    ``generator`` (vision first).
     """
-    if more_vision_augm or more_audio_augm:
-        raise NotImplementedError(
-            "more_vision_augm / more_audio_augm are not ported yet")
     out_dtype = model.dtype or torch.float32
     clips = spec = None
     if len(model.vision_backbones) > 0:
         c = arrays["clips"]
-        if color_factors is None:
+        flat = c.reshape(-1, *c.shape[2:])
+        if more_vision_augm:
+            if vision_augment is None:
+                vision_augment = sample_vision_augment(
+                    generator, flat.shape[0] * flat.shape[1],
+                    device=c.device)
+            clips = more_vision_augment(flat, vision_augment)
+        elif color_factors is None:
             clips = preprocess_clips(c)
         else:
-            flat = c.reshape(-1, *c.shape[2:])
-            clips = preprocess_clips(flat, *color_factors, augment=True
-                                     ).reshape(c.shape)
-        clips = clips.to(out_dtype)
+            clips = preprocess_clips(flat, *color_factors, augment=True)
+        clips = clips.reshape(c.shape).to(out_dtype)
     if "ResNet18" in model.audio_backbones:
-        spec = log_mel(arrays["audio"], batch_dims=2).to(out_dtype)
+        a = arrays["audio"]
+        if more_audio_augm:
+            if audio_augment is None:
+                audio_augment = sample_audio_augment(
+                    generator, a.shape[0] * a.shape[1], device=a.device)
+            mel = more_audio_augment(a.reshape(-1, a.shape[-1]),
+                                     audio_augment)
+            spec = mel.reshape(*a.shape[:2], *mel.shape[1:])
+        else:
+            spec = log_mel(a, batch_dims=2)
+        spec = spec.to(out_dtype)
     return spec, clips
 
 
@@ -102,14 +131,18 @@ def _check_state(model, state: TrainState) -> None:
 def make_train_step(model, more_vision_augm: bool = False,
                     more_audio_augm: bool = False, device=None) -> Callable:
     """Returns ``train_step(state, arrays, generator=None,
-    color_factors=None) -> (loss, vouts, aouts)``.
+    color_factors=None, vision_augment=None, audio_augment=None) -> (loss,
+    vouts, aouts)``.
 
-    One SGD step in place on ``state``: colour-augmented preprocessing,
+    One SGD step in place on ``state``: augmented preprocessing (the
+    colour augmentation, or the heavy ones of ``more_vision_augm`` /
+    ``more_audio_augm``, ``preprocess``),
     the forward in train mode (``JMTModel.train``: frozen backbones stay
     in eval mode), ccc_loss(V) + ccc_loss(A) on the flattened (B*S)
     outputs with ``arrays["row_weight"]`` (B,) masking padding rows,
-    backward, ``state.optimizer.step()``. The colour factors are drawn
-    from ``generator`` (torch's default one when None) unless given.
+    backward, ``state.optimizer.step()``. The colour factors and the heavy
+    augmentations' parameters are drawn from ``generator`` (torch's
+    default one when None) unless given, in that order.
     The three phases run inside ``torch.profiler`` ranges
     ``train_step.forward`` / ``.backward`` / ``.optimizer`` (a profile
     attributes the device time of the forward and optimizer kernels to
@@ -120,17 +153,21 @@ def make_train_step(model, more_vision_augm: bool = False,
 
     def train_step(state: TrainState, arrays: Arrays,
                    generator: Optional[torch.Generator] = None,
-                   color_factors=None):
+                   color_factors=None, vision_augment=None,
+                   audio_augment=None):
         _check_state(model, state)
         x = _on(arrays, dev)
         b, s = x["labels_v"].shape[:2]
-        if color_factors is None and len(model.vision_backbones) > 0:
+        if (color_factors is None and not more_vision_augm
+                and len(model.vision_backbones) > 0):
             color_factors = sample_color_factors(generator, b * s,
                                                  device=dev)
         model.train()
         with record_function("train_step.forward"):
             spec, clips = preprocess(model, x, color_factors,
-                                     more_vision_augm, more_audio_augm)
+                                     more_vision_augm, more_audio_augm,
+                                     vision_augment, audio_augment,
+                                     generator)
             vouts, aouts = model(spec, clips, x.get("wavlm"))
             rw = x.get("row_weight")
             w = None if rw is None else \

@@ -14,7 +14,10 @@ and at the epoch boundaries a requested preemption saves the state and
 ends ``fit`` without ``passed.txt``. A mid-epoch save holds the step and
 the epoch's accumulators; ``resume`` replays the epoch's data order (a
 function of SEED + epoch) and skips the steps already taken. Each step's
-colour factors come from a generator seeded by (SEED, epoch, step)
+colour factors, or the parameters of the heavy augmentations that
+``train_params``' ``use_more_vision_data_augm`` /
+``use_more_audio_data_augm`` turn on (the train step's only, as in JAX),
+come from a generator seeded by (SEED, epoch, step)
 (``core/rng.step_generator``), so the resumed run is the uninterrupted
 one, bit for bit on the CPU.
 
@@ -109,7 +112,11 @@ class Runner:
                         if opt.lr_scheduler
                         and opt.name_lr_scheduler == "reduce_on_plateau"
                         else None)
-        self.train_step = make_train_step(self.model, device=self.device)
+        self.train_step = make_train_step(
+            self.model,
+            more_vision_augm=cfg.train_params.use_more_vision_data_augm,
+            more_audio_augm=cfg.train_params.use_more_audio_data_augm,
+            device=self.device)
         self.eval_step = make_eval_step(self.model, device=self.device)
         self.state = None
         self.tracker: Dict[str, list] = {"train_v": [], "train_a": [],
@@ -174,6 +181,16 @@ class Runner:
             return None
         return sample_color_factors(gen, n_clips)
 
+    def _step_augment(self, epoch: int, step: int, n_clips: int) -> dict:
+        """The train step's augmentation, as its keyword arguments: the
+        colour factors (``_color_factors``), or under a heavy augmentation
+        the step's generator, which the step draws them from (``loops.
+        preprocess``)."""
+        tp = self.cfg.train_params
+        if tp.use_more_vision_data_augm or tp.use_more_audio_data_augm:
+            return {"generator": step_generator(self.cfg.SEED, epoch, step)}
+        return {"color_factors": self._color_factors(epoch, step, n_clips)}
+
     def _export_trace(self, profiler, epoch: int) -> None:
         profiler.stop()
         os.makedirs(self.cfg.profile_dir, exist_ok=True)
@@ -212,12 +229,12 @@ class Runner:
             t_step = time.perf_counter()
             arrays, n_real = self._device_arrays(batch, bsz, copies)
             s = batch.labels_v.shape[1]
-            factors = self._color_factors(epoch, n, bsz * s)
+            augment = self._step_augment(epoch, n, bsz * s)
             if profiling and n == 2:
                 profiler = torch.profiler.profile()
                 profiler.start()
             loss, vouts, aouts = self.train_step(self.state, arrays,
-                                                 color_factors=factors)
+                                                 **augment)
             epoch_loss += float(loss)
             n += 1
             if profiler is not None and n == 5:

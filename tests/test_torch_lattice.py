@@ -14,6 +14,7 @@ pin the sum), less nothing but the visual intra-modal fusion's unused
 768 -> 512 ``fc``, which the port keeps as the reference does. The keys
 the port leaves out raise.
 """
+import dataclasses
 import itertools
 
 import jax
@@ -279,9 +280,13 @@ def test_invalid_lattices_are_rejected_on_both_sides(bad):
     ("val_params.use_more_audio_data_augm", True)])
 def test_unported_keys_raise(key, value):
     """What the port leaves out raises ``NotImplementedError`` naming
-    the key. ``init_w_*`` is ported (``models/pretrained.py``): the model
-    builds with random backbones, and loading the pretrained ones raises
-    without a weights directory, as in JAX."""
+    the key: a data mesh of more than one card. ``init_w_*`` is ported
+    (``models/pretrained.py``): the model builds with random backbones,
+    and loading the pretrained ones raises without a weights directory,
+    as in JAX. ``remat_backbones`` and the heavy augmentations are ported:
+    the model builds and takes a train step made as the Runner makes it
+    (the flags of ``train_params``; those of ``val_params`` have no
+    effect, as in JAX)."""
     extra = {}
     if key.startswith(("train_params", "val_params")):
         split, k = key.split(".")
@@ -290,6 +295,8 @@ def test_unported_keys_raise(key, value):
         extra[key] = value
     else:
         extra["mp"] = {key: value}
+    if key == "remat_backbones":
+        extra["mp"]["freeze_vision_R2D1"] = False
     vision = ("I3D",) if key == "init_w_I3D" else ("R2D1",)
     cfg = _config(vision, ("ResNet18",), **extra)
     if key.startswith("init_w_"):
@@ -298,5 +305,48 @@ def test_unported_keys_raise(key, value):
         with pytest.raises(ValueError, match="pretrained_weights_dir"):
             apply_pretrained(cfg, model)
         return
-    with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
-        model_from_config(cfg)
+    if key == "mesh_data_parallel":
+        with pytest.raises(NotImplementedError, match=key):
+            model_from_config(cfg)
+        return
+    _train_step_as_the_runner(cfg, key)
+
+
+def _train_step_as_the_runner(cfg, key):
+    from jmt_tpu_torch.train import loops
+    model = model_from_config(cfg)
+    if key == "remat_backbones":
+        assert model.backbones.remat_whole == ("R2D1", "I3D", "ResNet18")
+        stage = model_from_config(dataclasses.replace(
+            cfg, model_params=dataclasses.replace(
+                cfg.model_params, remat_granularity="stage"))).backbones
+        assert stage.remat_whole == ("ResNet18",)
+        assert stage.vision_r2d1.r2plus1d.remat_blocks
+    tp = cfg.train_params
+    flags = dict(more_vision_augm=tp.use_more_vision_data_augm,
+                 more_audio_augm=tp.use_more_audio_data_augm)
+    assert flags["more_vision_augm"] == (key == "train_params."
+                                         "use_more_vision_data_augm")
+    assert not flags["more_audio_augm"]
+    state = loops.init_state(model, cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    assert ("backbones.vision_r2d1.r2plus1d.stem.0.weight"
+            in state.trainable) == (key == "remat_backbones")
+    rng = np.random.default_rng(0)
+    arrays = {"clips": rng.integers(0, 256, (1, 2, 8, 16, 16, 3),
+                                    dtype=np.uint8),
+              "audio": (0.1 * rng.normal(size=(1, 2, 45599))).astype(
+                  np.float32),
+              "labels_v": rng.uniform(-1, 1, (1, 2)).astype(np.float32),
+              "labels_a": rng.uniform(-1, 1, (1, 2)).astype(np.float32)}
+    gen = torch.Generator().manual_seed(1)
+    spec, _ = loops.preprocess(model, {k: torch.from_numpy(x) for k, x in
+                                       arrays.items()}, generator=gen,
+                               **flags)
+    assert spec.shape == (1, 2, 64, 104)   # log-mel: no audio augmentation
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    loss, v, a = loops.make_train_step(model, device="cpu", **flags)(
+        state, arrays, gen)
+    assert torch.isfinite(loss) and v.shape == a.shape == (1, 2)
+    after = model.state_dict()
+    assert not all(torch.equal(after[n], before[n]) for n in state.trainable)
