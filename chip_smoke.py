@@ -151,6 +151,31 @@ failure raises and the script exits non-zero:
    CPU's in f32 (1e-4 of max |ref|); a
    ``StreamingSession`` over two synthetic videos against the stitched,
    smoothed traces of the eager forward (2e-3);
+13b. several devices (A.8), after ``serve_int8``: ``ddp_step``, two
+   ranks on the one card (gloo, spawned by ``parallel/mesh.spawn_ranks``)
+   against one process on the same global batch (B = 8, S = 16, f32,
+   TF32 off), the frozen flagship and the flagship with R2D1 finetuned
+   (batch-statistics BN, remat by backbone): the global loss within 1e-4,
+   the updates within 1e-3 of the step's largest (R2D1 finetuned: 5e-2,
+   float32's floor), R2D1's running statistics within 1e-3 and its counts
+   equal, the two ranks equal, each rank's K1/K2/K3 launches a step (the
+   forward's, none in the backward); then the frozen flagship's bf16
+   step p50 on each rank. ``ddp_cli``: cli_train's flagship command for
+   one epoch in this process, then under ``python -m
+   torch.distributed.run --standalone --nproc_per_node=2`` (each rank's
+   experiment under its own root): gloo chosen, both ranks print the
+   same result, the valid CCC within 2e-3 of this process's, rank 1's
+   root empty, the epoch seconds; ``ddp_nccl``: the same with one rank,
+   NCCL chosen, equal to this process's run bit for bit (best epoch and
+   trained weights). ``tp_server``: a tensor-parallel flagship server
+   over the one card twice, f32 (TF32 off) V/A within 2e-5 of the
+   single-device eager forward, the parameters split and the split layers
+   a forward, 1 K1, 12 K2, 9 K3 a forward (asserted); bf16 p50 at
+   buckets 1 and 8 beside the graphed single-device server's; ``serve
+   --tp 1 --exp-dir`` on cli_train's directory. ``second_card``: K1-K4
+   on the last card after the first against their plain versions (each
+   kernel raises its shared-memory limit per card); with one card it
+   prints that it was skipped;
 14. cli_default_config: config.json's own model (R2D1 + ResNet18, FC
    head, bf16) for one epoch (1 K1, 6 K2 a forward, asserted); one eval
    forward each of NoJR (4 K2) and FeatureConcatFC (no K2), card f32
@@ -185,6 +210,14 @@ of each TREE in turn, each in a fresh process (``--mel-times`` /
 ``--k4-times`` / ``--k3-times`` run from that tree), on one card in one
 call: a parent tree unpacked with ``git archive`` into the ignored
 ``build/ab/``.
+
+    python3 chip_smoke.py --digests-ab TREE...   # e.g. parent . . parent
+
+runs K1-K4 on seeded inputs (``kernel_runs``: K2 short and long in f32
+and bf16, K3's bf16 launch at Mixed_4b and Mixed_5c, K4 in bf16) with the
+jmt_tpu_torch of each TREE in a fresh process (``--kernel-digests-times``
+from that tree), prints each output's SHA-256 and exits non-zero unless
+every tree gave the same bytes.
 
     python3 chip_smoke.py --determinism
 
@@ -1813,12 +1846,11 @@ def phase_train(rng):
     return state
 
 
-def update_gap(model, before: dict, want_after: dict, want_before: dict,
-               trainable) -> dict:
+def update_gap(after: dict, before: dict, want_after: dict,
+               want_before: dict, trainable) -> dict:
     """The largest gap between two runs' updates (new - old) of the
     trainable tensors, less an ulp of the new value: against the step's
     largest |update| and against each tensor's own."""
-    after = model.state_dict()
     gaps, scales = {}, {}
     for n in trainable:
         got = (after[n] - before[n]).cpu().double()
@@ -1865,7 +1897,7 @@ def phase_train_card_vs_cpu() -> None:
         runs[name] = (model, state, before, float(loss))
     (card, state, before, loss_card), (cpu, _, cpu_before, loss_cpu) = \
         runs["card_f32"], runs["cpu_f32"]
-    gap = update_gap(card, before, cpu.state_dict(), cpu_before,
+    gap = update_gap(card.state_dict(), before, cpu.state_dict(), cpu_before,
                      state.trainable)
     emit({"phase": "train_card_vs_cpu", "loss_card": loss_card,
           "loss_cpu": loss_cpu, "loss_delta": abs(loss_card - loss_cpu),
@@ -3283,8 +3315,9 @@ def k3_times() -> None:
 
 
 def tree_times(tree: str, mode: str) -> list:
-    """The records of ``--mel-times`` / ``--k4-times`` / ``--k3-times``
-    run in a fresh process from ``tree``, on that tree's jmt_tpu_torch."""
+    """The records of ``--mel-times`` / ``--k4-times`` / ``--k3-times`` /
+    ``--kernel-digests-times`` run in a fresh process from ``tree``, on
+    that tree's jmt_tpu_torch."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            f"--{mode}-times"], cwd=tree, capture_output=True,
                           text=True, timeout=900)
@@ -3393,14 +3426,465 @@ def determinism(forwards: int = 20, kernel_calls: int = 30) -> None:
         raise AssertionError(f"not bitwise run to run: {moved}")
 
 
+# ---------------------------------------------------------------------------
+# several devices (A.8): data-parallel ranks, tensor-parallel serving
+# ---------------------------------------------------------------------------
+DDP_RANKS = 2
+DDP_TIMED_STEPS = 5
+DDP_EXPS = "build/chip_ddp"
+# a 2-rank step against one process on the same global batch (f32, TF32
+# off): PERF.md's train-step bounds. With R2D1 finetuned (batch-statistics
+# BN) the updates are held to float32's floor instead: one process with
+# the global-statistics BN formula in place of F.batch_norm already moves
+# R2D1's stem update by 8e-3 of the step's largest (the CPU tests,
+# tests/test_torch_parallel.py)
+DDP_LOSS_TOL, DDP_UPDATE_TOL, DDP_BN_UPDATE_TOL = 1e-4, 1e-3, 5e-2
+DDP_STAT_TOL = 1e-3
+# JAX's pod bound on the valid CCC (tests/test_multiproc_real.py)
+DDP_CCC_TOL = 2e-3
+TP_MESH = ("cuda:0", "cuda:0")
+TP_VA_TOL = 2e-5
+
+
+def ddp_state(kind: str, dtype):
+    """The flagship (the inception flag on, seed-0 weights, SGD lr 1e-2),
+    its train state and step: every backbone frozen (``frozen``), or R2D1
+    finetuned with batch-statistics BN and remat by backbone
+    (``r2d1_batch``)."""
+    from jmt_tpu_torch.models.jmt_model import JMTModel
+    from jmt_tpu_torch.train import loops
+    finetune = ("R2D1",) if kind == "r2d1_batch" else ()
+    model = JMTModel(**FLAGSHIP_CONFIG, finetune=finetune,
+                     i3d_fused_inception=True, dtype=dtype,
+                     remat=bool(finetune))
+    state = loops.init_state(
+        model, finetune_config(FLAGSHIP_CONFIG, finetune, lr=1e-2),
+        torch.Generator().manual_seed(0))
+    return model, state, loops.make_train_step(model)
+
+
+def ddp_inputs() -> tuple:
+    """The global batch (B = TRAIN_B, S = TRAIN_S, host arrays) and its
+    colour factors."""
+    from jmt_tpu_torch.data.transforms import sample_color_factors
+    arrays = train_arrays(np.random.default_rng(12), TRAIN_B, TRAIN_S)
+    # rank 0's rows above rank 1's, so that a per-rank CCC is far off
+    for k in ("labels_v", "labels_a"):
+        arrays[k][:TRAIN_B // 2] = np.where(
+            arrays[k][:TRAIN_B // 2] == -5.0, -5.0,
+            0.5 * arrays[k][:TRAIN_B // 2] + 0.4)
+        arrays[k][TRAIN_B // 2:] = 0.5 * arrays[k][TRAIN_B // 2:] - 0.4
+    factors = sample_color_factors(torch.Generator().manual_seed(12),
+                                   TRAIN_B * TRAIN_S)
+    return arrays, tuple(f.numpy() for f in factors)
+
+
+def ddp_one_step(kind: str, dtype, arrays: dict, factors: tuple,
+                 rows: slice) -> dict:
+    """One step of ``kind`` on ``rows`` of the global batch; its loss,
+    launches (forward, backward), the trainable tensors and BN buffers
+    after it, on the host."""
+    model, state, step = ddp_state(kind, dtype)
+    x = {k: torch.from_numpy(v[rows]).cuda() for k, v in arrays.items()}
+    f = tuple(torch.from_numpy(v[rows.start * TRAIN_S:rows.stop * TRAIN_S])
+              .cuda() for v in factors)
+    (loss, _, _), fwd, bwd = split_launches(step, state, x,
+                                            color_factors=f)
+    sd = model.state_dict()
+    out = {"loss": float(loss), "forward": fwd, "backward": bwd,
+           "trainable": {n: sd[n].cpu().numpy() for n in state.trainable},
+           "buffers": {k: v.cpu().numpy() for k, v in sd.items()
+                       if k.startswith("backbones.vision_r2d1.")
+                       and not k.endswith(("weight", "bias"))}}
+    return out, (model, state, step, x, f)
+
+
+DDP_KINDS = ("frozen", "r2d1_batch")
+
+
+def ddp_rank(rank: int, arrays: dict, factors: tuple) -> dict:
+    """A rank of ``ddp_step`` (spawned): one f32 step (TF32 off) of each
+    of ``DDP_KINDS`` on its rows, then the frozen flagship in bf16: one
+    warm-up step and the CUDA-events ms of ``DDP_TIMED_STEPS`` more."""
+    from jmt_tpu_torch.parallel import mesh as M
+    rows = M.process_rows(TRAIN_B)
+    out = {}
+    for kind in DDP_KINDS:
+        with full_fp32():
+            out[kind] = ddp_one_step(kind, None, arrays, factors, rows)[0]
+        torch.cuda.empty_cache()
+    _, (model, state, step, x, f) = ddp_one_step(
+        "frozen", torch.bfloat16, arrays, factors, rows)
+    out["bf16_step_ms"] = sorted(
+        events_ms(lambda: step(state, x, color_factors=f))[1]
+        for _ in range(DDP_TIMED_STEPS))
+    return out
+
+
+def phase_ddp_step() -> None:
+    """Two ranks on the one card (gloo, spawned) against one process on
+    the same global batch (B = 8, S = 16, 112 px, f32, TF32 off): the
+    frozen flagship, then R2D1 finetuned with batch-statistics BN (remat
+    by backbone: its recompute gathers the statistics again). The ranks'
+    losses equal each other and the process's within 1e-4; the updates
+    within 1e-3 of the step's largest |update| (finetuned: 5e-2, float32's
+    floor); R2D1's running statistics within 1e-3 and its counts equal;
+    each rank's K1/K2/K3 launches a step: the forward's, none in the
+    backward (K2's backward is torch matmuls). Then the frozen flagship's
+    bf16 step p50 per rank (the card is shared: no DDP speed figure)."""
+    from jmt_tpu_torch.parallel import mesh as M
+    arrays, factors = ddp_inputs()
+    ones, befores = {}, {}
+    for kind in DDP_KINDS:
+        with full_fp32():
+            model, state, _ = ddp_state(kind, None)
+            befores[kind] = {n: v.cpu() for n, v in
+                             model.state_dict().items()
+                             if n in state.trainable}
+            del model, state
+            ones[kind] = ddp_one_step(kind, None, arrays, factors,
+                                      slice(0, TRAIN_B))[0]
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = M.spawn_ranks(ddp_rank, DDP_RANKS, arrays, factors,
+                          device="cuda:0", timeout=600)
+    emit({"phase": "ddp_spawn", "ranks": DDP_RANKS,
+          "seconds": time.perf_counter() - t0,
+          **{f"bf16_step_p50_ms_rank{r}": ranks[r]["bf16_step_ms"][
+              DDP_TIMED_STEPS // 2] for r in range(DDP_RANKS)},
+          **{f"bf16_step_ms_rank{r}": ranks[r]["bf16_step_ms"]
+             for r in range(DDP_RANKS)}})
+    for kind in DDP_KINDS:
+        one, (r0, r1) = ones[kind], (r[kind] for r in ranks)
+        gap = update_gap(
+            {n: torch.from_numpy(x) for n, x in r0["trainable"].items()},
+            befores[kind],
+            {n: torch.from_numpy(x) for n, x in one["trainable"].items()},
+            befores[kind], befores[kind])
+        stats = max((float(np.abs(r0["buffers"][k] - one["buffers"][k])
+                           .max()) for k in one["buffers"]
+                     if k.endswith(("running_mean", "running_var"))),
+                    default=0.0)
+        counts_equal = all(np.array_equal(r0["buffers"][k], one["buffers"][k])
+                           for k in one["buffers"]
+                           if k.endswith("num_batches_tracked"))
+        ranks_equal = r0["loss"] == r1["loss"] and all(
+            np.array_equal(r0["trainable"][n], r1["trainable"][n])
+            for n in r0["trainable"])
+        rec = {"phase": "ddp_step", "kind": kind, "ranks": DDP_RANKS,
+               "batch": TRAIN_B, "seq": TRAIN_S, "loss_ranks": r0["loss"],
+               "loss_one_process": one["loss"],
+               "loss_delta": abs(r0["loss"] - one["loss"]),
+               "updates": gap, "running_stats_max_abs": stats,
+               "counts_equal": counts_equal, "ranks_equal": ranks_equal,
+               "rank_forward_launches": [r0["forward"], r1["forward"]],
+               "rank_backward_launches": [r0["backward"], r1["backward"]],
+               "one_process_forward_launches": one["forward"]}
+        emit(rec)
+        tol = DDP_BN_UPDATE_TOL if kind == "r2d1_batch" else DDP_UPDATE_TOL
+        bad = [f"loss {rec['loss_delta']}"] if rec["loss_delta"] > \
+            DDP_LOSS_TOL else []
+        if gap["of_step_scale"] > tol:
+            bad.append(f"updates {gap}")
+        if stats > DDP_STAT_TOL or not counts_equal:
+            bad.append(f"running statistics {stats}, counts {counts_equal}")
+        if not ranks_equal:
+            bad.append("the ranks differ")
+        for r in (r0, r1):
+            if r["forward"] != PER_FORWARD["flagship"] or any(
+                    r["backward"].values()):
+                bad.append(f"launches {r['forward']} / {r['backward']}")
+        if bad:
+            raise AssertionError(f"ddp_step {kind}: {bad}")
+
+
+def torchrun_cli(nproc: int, argv: list, root: str) -> dict:
+    """``python -m torch.distributed.run --standalone --nproc_per_node=
+    nproc`` of ``python -m jmt_tpu_torch.cli argv``, each rank's
+    experiment under ``root/rank<r>`` (per-host directories); the ranks'
+    printed results, the backends they chose and the seconds."""
+    import shlex
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    cli = shlex.join([sys.executable, "-m", "jmt_tpu_torch.cli", *argv,
+                      "--outd"])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "--no-python", "sh", "-c",
+           f"exec {cli} {shlex.quote(root)}/rank$RANK"]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"torchrun {nproc}: exit {done.returncode}\n"
+                             f"{done.stdout[-3000:]}\n{done.stderr[-6000:]}")
+    results = [ln for ln in done.stdout.splitlines()
+               if ln.startswith('{"best"')]
+    backends = sorted({ln.split("backend ")[1].split(",")[0]
+                       for ln in done.stderr.splitlines()
+                       if "jmt_tpu_torch: rank" in ln})
+    return {"results": results, "backends": backends, "seconds": seconds}
+
+
+def files_under(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs) \
+        if os.path.isdir(root) else []
+
+
+def phase_ddp_cli() -> None:
+    """``cli_train``'s flagship command for one epoch: in this process
+    (the plain run), then under ``torch.distributed.run`` with two ranks
+    on the one card (``ddp_cli``: gloo; both ranks print the same result
+    bit for bit, its valid CCC within 2e-3 of the plain run's, rank 1's
+    experiment root holds no file), then with one rank (``ddp_nccl``:
+    NCCL, whose communicator the group's first all-reduce builds; equal
+    to the plain run bit for bit, best epoch and trained weights)."""
+    argv = cli_argv("unused", *FLAGSHIP_FLAGS, epochs=1)[:-2]
+    plain_exp = fresh(os.path.join(DDP_EXPS, "plain"))
+    plain, launches, seconds = run_cli(
+        argv + ["--outd", os.path.join(DDP_EXPS, "plain")])
+    (plain_rec,) = epoch_records(plain_exp)
+    emit({"phase": "ddp_plain", "seconds": seconds, **plain, **launches,
+          "epoch_seconds": plain_rec["epoch_seconds"]})
+    for name, nproc in (("ddp_cli", DDP_RANKS), ("ddp_nccl", 1)):
+        root = os.path.join(DDP_EXPS, name)
+        run = torchrun_cli(nproc, argv, root)
+        exp = os.path.join(root, "rank0", "id_exp")
+        (rec,) = epoch_records(exp)
+        best = [json.loads(r)["best"] for r in run["results"]]
+        rec_out = {"phase": name, "ranks": nproc,
+                   "backends": run["backends"], "seconds": run["seconds"],
+                   "epoch_seconds": rec["epoch_seconds"],
+                   "train_seconds": rec.get("train_seconds"),
+                   "step_p50_seconds": rec.get("step_p50_seconds"),
+                   "best": best[0] if best else None,
+                   "ranks_identical": len(set(run["results"])) == 1
+                   and len(run["results"]) == nproc,
+                   "valid_delta": max(abs(best[0][k] - plain["best"][k])
+                                      for k in ("valid_v", "valid_a"))
+                   if best else None}
+        others = {r: files_under(os.path.join(root, f"rank{r}"))
+                  for r in range(1, nproc)}
+        rec_out["files_off_rank0"] = sum(len(v) for v in others.values())
+        bad = []
+        if not rec_out["ranks_identical"]:
+            bad.append(f"results {run['results']}")
+        if rec_out["files_off_rank0"]:
+            bad.append(f"files off rank 0 {others}")
+        want_backend = ["gloo"] if nproc > 1 else ["nccl"]
+        if run["backends"] != want_backend:
+            bad.append(f"backends {run['backends']}")
+        if name == "ddp_cli":
+            if not rec_out["valid_delta"] <= DDP_CCC_TOL:
+                bad.append(f"valid CCC {rec_out['valid_delta']} from the "
+                           f"plain run")
+        else:
+            a, b = final_weights(exp), final_weights(plain_exp)
+            moved = [k for k in b if not torch.equal(a[k], b[k])]
+            rec_out["weights_differing"] = moved
+            if best[0] != plain["best"] or moved:
+                bad.append(f"not the plain run: best {best[0]} vs "
+                           f"{plain['best']}, tensors that moved {moved[:8]}")
+        emit(rec_out)
+        if bad:
+            raise AssertionError(f"{name}: {bad}")
+
+
+def phase_tp_server(exp: str) -> None:
+    """A tensor-parallel flagship server over ``TP_MESH`` (the one card
+    twice: every split layer's two slices on it): in f32 with TF32 off,
+    V/A within 2e-5 of the single-device eager forward at bucket 8, the
+    parameters the rule splits, the split layers a forward runs, the
+    K1/K2/K3 launches a TP forward (the flagship's: they run whole on the
+    lead device); then in bf16 the p50 at buckets 1 and 8 beside the
+    graphed single-device server's (a TP server runs eagerly); then
+    ``serve --tp 1 --exp-dir`` on ``cli_train``'s experiment."""
+    import io
+    from jmt_tpu_torch import serve
+    from jmt_tpu_torch.parallel import tp
+    from jmt_tpu_torch.train.loops import eval_forward
+    rng = np.random.default_rng(9)
+    reqs = {b: request(rng, b, TRAIN_S) for b in (1, 8)}
+    cfg = dict(FLAGSHIP_CONFIG, i3d_fused_inception=True)
+    with full_fp32():
+        model = make_model(cfg, None).cuda().eval()
+        want = eval_forward(model, {k: torch.from_numpy(x).cuda() for k, x
+                                    in zip(REQUEST_KEYS, reqs[8])})
+        want = tuple(x.float().cpu().numpy() for x in want)
+        server = serve.InferenceServer(model, buckets=(1, 8),
+                                       model_mesh=list(TP_MESH))
+        calls = tp.sharded_calls()
+        got, launches = counted(lambda: server.predict(*reqs[8]))
+        rec = {"phase": "tp_server", "mesh": list(TP_MESH),
+               "dtype": "float32",
+               "sharded_parameters": sum(n > 1 for n in
+                                         server.tp_shardings.values()),
+               "parameters": len(server.tp_shardings),
+               "split_layers_per_forward": tp.sharded_calls() - calls,
+               "graphs": len(server.graphs),
+               "va_max_abs_vs_single_device": va_max_abs(got, want),
+               **launches}
+    emit(rec)
+    del server, model
+    torch.cuda.empty_cache()
+    if not (rec["va_max_abs_vs_single_device"] <= TP_VA_TOL
+            and rec["sharded_parameters"] >= 1
+            and rec["split_layers_per_forward"] >= 1
+            and launches == PER_FORWARD["flagship"] and not rec["graphs"]):
+        raise AssertionError(f"tp_server: {rec}")
+    model = make_model(cfg, torch.bfloat16)
+    graphed = serve.InferenceServer(model, buckets=(1, 8))
+    tps = serve.InferenceServer(model, buckets=(1, 8),
+                                model_mesh=list(TP_MESH))
+    for b, req in reqs.items():
+        emit({"phase": "tp_server_latency", "dtype": "bfloat16",
+              "tp": request_latency(tps.predict, req),
+              "graphed_single_device": request_latency(graphed.predict,
+                                                       req)})
+    del graphed, tps, model
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--exp-dir", exp, "--tp", "1", "--buckets", "1,8"])
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    emit({"phase": "serve_tp1", "seconds": time.perf_counter() - t0,
+          **{f"bucket{b}_{mode}_p50_ms": stats["buckets"][b][mode]["p50_ms"]
+             for b in ("1", "8") for mode in ("relay", "device_resident")}})
+    if rc != 0 or sorted(stats["buckets"]) != ["1", "8"]:
+        raise AssertionError(f"serve --tp 1: {rc}, {stats}")
+
+
+@torch.no_grad()
+def kernel_runs(dev: torch.device) -> dict:
+    """K1-K4 launched on ``dev`` from seeded inputs, each beside its plain
+    version there: ``{name: (kernel output, plain output)}``. K1 at N = 16
+    (f32), K2 on a short and a long problem in f32 and bf16, K3 at
+    Mixed_4b and Mixed_5c (its avg_tail) in bf16 (the sm_90 pipeline), K4
+    at (16, 8, 14, 14, 512) to 64 in bf16."""
+    from jmt_tpu_torch.models.common import init_parameters
+    from jmt_tpu_torch.models.i3d import InceptionModule
+    from jmt_tpu_torch.ops import mel
+    from jmt_tpu_torch.ops.inception import (fold_inception_weights,
+                                             inception_plain)
+    from jmt_tpu_torch.ops.kernels import fused_attention as fa
+    from jmt_tpu_torch.ops.kernels import melspec
+    from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
+    from jmt_tpu_torch.ops.kernels.pool1x1 import pool3_1x1
+    from jmt_tpu_torch.ops.pool1x1 import pool3_1x1_plain
+    gen = torch.Generator().manual_seed(4)
+    runs = {}
+    with torch.cuda.device(dev):
+        audio = (0.1 * torch.randn(16, mel.AUDIO_SAMPLES, generator=gen)
+                 ).to(dev)
+        runs["log_mel"] = (melspec.log_mel_spec(audio),
+                           mel.log_mel_batch(audio))
+        for dtype in (torch.float32, torch.bfloat16):
+            for lq in (16, 300):
+                q, k, v = (x.to(dev) for x in attn_inputs(
+                    gen, 2, lq, lq, 512, dtype))
+                runs[f"fused_attention_{lq}_{str(dtype)[6:]}"] = (
+                    fa.fused_attention(q, k, v), fa.attention_plain(q, k, v))
+        for name, c, hw, spec, _ in inception_modules():
+            if name not in ("Mixed_4b", "Mixed_5c"):
+                continue
+            avg = name == "Mixed_5c"
+            m = InceptionModule(c, spec, dtype=torch.bfloat16,
+                                avg_tail=avg)
+            init_parameters(m, gen)
+            random_bn(m, gen)
+            m = m.to(dev).eval()
+            x = torch.randn(16, 8, hw, hw, c, generator=gen).relu_().to(
+                torch.bfloat16).to(dev).permute(0, 4, 1, 2, 3)
+            fw = fold_inception_weights(m._folded_branch, torch.bfloat16)
+            runs[f"inception_module_fused_{name}"] = (
+                inception_module_fused(x, fw, spec, avg_tail=avg),
+                inception_plain(x, fw, spec, avg_tail=avg))
+        x = torch.randn(16, 8, 14, 14, 512, generator=gen).to(
+            torch.bfloat16).to(dev).permute(0, 4, 1, 2, 3)
+        kk = (0.05 * torch.randn(512, 64, generator=gen)).to(
+            torch.bfloat16).to(dev)
+        runs["pool3_1x1"] = (pool3_1x1(x, kk), pool3_1x1_plain(x, kk))
+        torch.cuda.synchronize(dev)
+    return runs
+
+
+# K1-K4 against their plain versions on another card: K1 absolute, the
+# others relative to max |plain| (K2 absolute: |out| < 1)
+SECOND_CARD_TOL = {"log_mel": 5e-5, "fused_attention": 1e-2,
+                   "inception_module_fused": 1e-2, "pool3_1x1": 1e-2}
+
+
+def kernels_on(dev: torch.device) -> dict:
+    """The largest error of each of K1-K4 on ``dev`` against its plain
+    version (``kernel_runs``), by kernel."""
+    errs = dict.fromkeys(SECOND_CARD_TOL, 0.0)
+    for name, (got, want) in kernel_runs(dev).items():
+        kernel = next(k for k in SECOND_CARD_TOL if name.startswith(k))
+        err = float((got.float() - want.float()).abs().max())
+        if kernel in ("inception_module_fused", "pool3_1x1"):
+            err /= float(want.float().abs().max())
+        errs[kernel] = max(errs[kernel], err)
+    return errs
+
+
+def kernel_digests() -> None:
+    """``--kernel-digests``: the SHA-256 of each ``kernel_runs`` output of
+    the jmt_tpu_torch in the working directory on card 0, one line."""
+    import hashlib
+    sys.path.insert(0, os.getcwd())
+    import jmt_tpu_torch
+    runs = kernel_runs(torch.device("cuda", 0))
+    emit({"package": os.path.dirname(jmt_tpu_torch.__file__),
+          "digests": {name: hashlib.sha256(
+              got.detach().cpu().contiguous().view(torch.uint8).numpy()
+              .tobytes()).hexdigest() for name, (got, _) in runs.items()}})
+
+
+def digests_ab(trees) -> None:
+    """``--digests-ab TREE...``: ``--kernel-digests`` of each tree in a
+    fresh process; raises unless every tree's outputs are the same bytes
+    (a change that leaves the kernels' arithmetic alone)."""
+    seen = []
+    for tree in trees:
+        (rec,) = tree_times(tree, "kernel-digests")
+        emit({"phase": "digests_ab", "tree": tree, **rec})
+        seen.append(rec["digests"])
+    differ = sorted({k for d in seen for k in d if d[k] != seen[0][k]})
+    emit({"phase": "digests_ab", "trees": list(trees), "differing": differ})
+    if differ:
+        raise AssertionError(f"kernel outputs differ between the trees: "
+                             f"{differ}")
+
+
+def phase_second_card() -> None:
+    """K1-K4 on the last visible card after the first (their
+    shared-memory limits are raised per card): against their plain
+    versions. With one card there is no second card, and the phase says
+    that it was skipped."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit({"phase": "second_card", "skipped": f"{n} card visible: no "
+              f"second card to launch K1-K4 on; not checked"})
+        return
+    dev = torch.device("cuda", n - 1)
+    errs = kernels_on(dev)
+    emit({"phase": "second_card", "device": str(dev), "max_err": errs})
+    if any(not errs[k] <= tol for k, tol in SECOND_CARD_TOL.items()):
+        raise AssertionError(f"second card {dev}: {errs}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     times = {"--mel-times": mel_times, "--k4-times": k4_times,
-             "--k3-times": k3_times}
+             "--k3-times": k3_times, "--kernel-digests-times": kernel_digests}
     if sys.argv[1:2] and sys.argv[1] in times:
         times[sys.argv[1]]()
+        return 0
+    if sys.argv[1:2] == ["--digests-ab"]:
+        digests_ab(sys.argv[2:])
         return 0
     if sys.argv[1:2] in (["--mel-ab"], ["--k4-ab"], ["--k3-ab"]):
         tree_ab(sys.argv[2:], sys.argv[1][2:-3])
@@ -3478,6 +3962,16 @@ def main() -> int:
         phase_serve(exp)
     with phase("serve_int8"):
         phase_serve_int8(exp)
+    torch.cuda.empty_cache()
+    with phase("ddp_step"):
+        phase_ddp_step()
+    with phase("ddp_cli"):
+        phase_ddp_cli()
+    with phase("tp_server"):
+        phase_tp_server(exp)
+    with phase("second_card"):
+        phase_second_card()
+    torch.cuda.empty_cache()
     with phase("cli_default_config"):
         phase_cli_default_config()
     with phase("cli_files_pretrained"):

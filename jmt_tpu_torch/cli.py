@@ -25,9 +25,22 @@ best epoch's; ``state``: the last epoch's) and prints the stitched valid
 CCC, or writes the challenge ``{vid}.txt`` files.
 
 The run is on the card unless ``--device cpu`` says otherwise; without a
-card the default raises. ``--export-pt`` (the JAX package's conversion of
-``.msgpack`` components) has no counterpart: the port writes
-reference-format ``.pt`` components already.
+card the default raises.
+
+Several ranks (data parallelism, one process per card; ``batch_size`` is
+the global batch and splits over the ranks)::
+
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m jmt_tpu_torch.cli --config config.json ...
+
+Each rank joins the group (``parallel/mesh.init_distributed``: NCCL when
+each rank has a card, gloo on the CPU or when ranks share a card) and
+runs on card ``LOCAL_RANK``; rank 0 alone writes the experiment, so a
+resume needs ``outd`` on storage that every rank reads.
+
+``--export-pt`` (the JAX package's conversion of ``.msgpack``
+components) has no counterpart: the port writes reference-format ``.pt``
+components already.
 """
 from __future__ import annotations
 
@@ -190,13 +203,17 @@ def main(argv=None) -> int:
                          "command line converts its .msgpack components "
                          "with --export-pt DIR")
     cfg = build_config(args)
+    from jmt_tpu_torch.parallel.mesh import init_distributed, local_device
+    device = args.device
+    if init_distributed(device=device) is not None:
+        device = local_device(device)
     exp = ExperimentDir(cfg)
     init_logger(exp.path if cfg.Mode == "Training" or args.exp_dir
                 else None, stdout=cfg.verbose)
     from jmt_tpu_torch.train.runner import Runner
     train_ds, val_ds, test_ds, store = make_datasets(cfg, args.synthetic)
     runner = Runner(cfg, train_ds, val_ds, wavlm_store=store,
-                    test_ds=test_ds, device=args.device)
+                    test_ds=test_ds, device=device)
     if cfg.Mode == "Training":
         # a run that graceful preemption ended resumes without --resume;
         # any other crash needs it

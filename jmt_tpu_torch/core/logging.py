@@ -3,8 +3,9 @@
 Counterpart of ``jmt_tpu/core/logging.py``: ``log.json`` (one
 ``DLLL {...}`` record a call, the reference's DLLogger line format),
 ``log.txt`` and stdout mirroring, behind a module-level logger that
-``init_logger`` replaces. Each record is flushed as it is written. One
-process writes (the port trains on one device).
+``init_logger`` replaces. Each record is flushed as it is written.
+Under a process group rank 0 alone writes (the reference's master-pid
+gating, generalized to ranks).
 """
 from __future__ import annotations
 
@@ -66,12 +67,15 @@ _GLOBAL: Optional[JsonLinesLogger] = None
 def init_logger(outdir: Optional[str] = None, stdout: bool = True
                 ) -> JsonLinesLogger:
     """Replace the logger: log.json and log.txt under ``outdir`` (none
-    when it is None), stdout when ``stdout``. Closes the one it
-    replaces."""
+    when it is None), stdout when ``stdout``; off rank 0 a logger that
+    writes nothing. Closes the one it replaces."""
+    from jmt_tpu_torch.parallel.mesh import is_main_process
     global _GLOBAL
     if _GLOBAL is not None:
         _GLOBAL.close()
-    if outdir is not None:
+    if not is_main_process():
+        _GLOBAL = JsonLinesLogger(stdout=False)
+    elif outdir is not None:
         os.makedirs(outdir, exist_ok=True)
         _GLOBAL = JsonLinesLogger(os.path.join(outdir, "log.json"),
                                   os.path.join(outdir, "log.txt"),

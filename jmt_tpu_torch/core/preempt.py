@@ -6,8 +6,9 @@ and at the epoch boundaries, saves the state and exits without
 ``passed.txt``, so re-launching the same command resumes. ``request()``
 triggers the same path from code (tests, schedulers). Handlers are
 installed from the main thread only (``signal.signal`` raises
-elsewhere). The port runs one process, so the flag needs no agreement
-across processes: ``agreed()`` is ``requested()``.
+elsewhere). Under a process group every rank acts on ``agreed()``, the
+flag's maximum over the ranks, so that all ranks take the same branch
+(a signal reaches the ranks at different times).
 """
 from __future__ import annotations
 
@@ -52,8 +53,13 @@ def requested() -> bool:
 
 
 def agreed() -> bool:
-    """Whether to act on the flag: one process, so its own flag."""
-    return _EVENT.is_set()
+    """Whether to act on the flag: its maximum over the ranks (a MAX
+    all-reduce on the group's device, a collective that every rank calls
+    at the same points), the flag itself in one process."""
+    from jmt_tpu_torch.parallel import mesh
+    if mesh.proc_info()[1] == 1:
+        return _EVENT.is_set()
+    return bool(mesh.all_agree([int(_EVENT.is_set())]).max())
 
 
 def clear() -> None:

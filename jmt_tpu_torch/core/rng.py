@@ -37,10 +37,16 @@ def step_seed(seed: int, epoch: int, step: int) -> int:
     return (int(words[0]) << 31) ^ int(words[1])
 
 
-def step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
+def step_generator(seed: int, epoch: int, step: int,
+                   rank: int = 0) -> torch.Generator:
     """Seed torch's default generators for train step ``step`` of
     ``epoch`` and return a CPU generator of the same seed (the step's
-    colour factors)."""
+    colour factors). Under a process group the generator is the same on
+    every rank (its draws are the global batch's), and ``rank`` > 0
+    seeds the default generators (dropout) with a stream of its own, so
+    that the ranks' rows do not share their masks."""
     s = step_seed(seed, epoch, step)
-    torch.manual_seed(s)
+    torch.manual_seed(s if rank == 0 else int(
+        np.random.SeedSequence([seed, epoch, step, rank]).generate_state(
+            1, np.uint64)[0] >> 1))
     return torch.Generator().manual_seed(s)

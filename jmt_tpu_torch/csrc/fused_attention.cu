@@ -424,13 +424,20 @@ int slice_of(int bh, int lq, int d) {
   return ((nvec + split - 1) / split) * V;
 }
 
-// Raise kernel's dynamic shared memory limit to bytes, once.
+constexpr int kMaxDevices = 64;
+
+// Raise kernel's dynamic shared memory limit to bytes, once per device:
+// the attribute holds for the current device only.
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
+cudaError_t allow_smem(K kernel, size_t bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  done = e == cudaSuccess;
+  done[dev] = e == cudaSuccess;
   return e;
 }
 
@@ -442,7 +449,7 @@ int launch_as(const void* q, const void* k, const void* v, void* o, int bh,
   T* to = static_cast<T*>(o);
   cudaError_t e;
   if (lq <= kMaxL && lk <= kMaxL) {
-    static bool attr_set = false;
+    static bool attr_set[kMaxDevices];
     e = allow_smem(attention_kernel<T, kVec>,
                    smem_bytes<T>(kMaxL, kMaxL, kMaxD), attr_set);
     if (e != cudaSuccess) return (int)e;
@@ -451,7 +458,7 @@ int launch_as(const void* q, const void* k, const void* v, void* o, int bh,
     attention_kernel<T, kVec><<<grid, kThreads, smem_bytes<T>(lq, lk, d), s>>>(
         tq, tk, tv, to, lq, lk, d, slice);
   } else {
-    static bool attr_set = false;
+    static bool attr_set[kMaxDevices];
     e = allow_smem(attention_long_kernel<T, kVec>,
                    smem_bytes<T>(kTile, kTile, kMaxD), attr_set);
     if (e != cudaSuccess) return (int)e;

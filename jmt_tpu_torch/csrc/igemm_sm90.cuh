@@ -711,13 +711,25 @@ int encode_b(CUtensorMap* map, const void* w, int k, int ncols) {
 // One launch over L's problems (bf16). Tensor maps are encoded for each
 // launch: the weights are refolded every forward.
 int launch(const Launch& L, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  // per device, once: the raised shared memory limit (the attribute holds
+  // for the current device only) and the SM count, one persistent block
+  // per SM
+  static bool attr_set[64];
+  static int sms_of[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    e = cudaFuncSetAttribute(
         igemm_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    e = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return (int)e;
+    attr_set[dev] = true;
   }
+  const int sms = sms_of[dev];
   Launch90 P;
   memset(&P, 0, sizeof(P));
   P.L = L;
@@ -726,18 +738,10 @@ int launch(const Launch& L, cudaStream_t stream) {
     const Problem& p = L.p[i];
     P.tl[i] = tiling(p.ncols, L.rows, first);
     first += P.tl[i].row_tiles * P.tl[i].col_tiles;
-    const int e = encode_b(&P.tmap[i], p.w, p.k, p.ncols);
-    if (e != 0) return e;
+    const int r = encode_b(&P.tmap[i], p.w, p.k, p.ncols);
+    if (r != 0) return r;
   }
   P.ntiles = first;
-  static int sms = 0;  // one persistent block per SM
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
   igemm_sm90<<<first < sms ? first : sms, kThreads, kSmemBytes, stream>>>(P);
   return (int)cudaGetLastError();
 }

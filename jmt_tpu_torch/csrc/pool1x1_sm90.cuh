@@ -418,22 +418,26 @@ int encode_x(CUtensorMap* map, const void* x, const Geom& g) {
 
 template <int NW>
 int launch_nw(const Launch4& P, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pool1x1_sm90<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
+  // per device, once: the raised shared memory limit (the attribute holds
+  // for the current device only) and the SM count, one persistent block
+  // per SM
+  static bool attr_set[64];
+  static int sms_of[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    e = cudaFuncSetAttribute(pool1x1_sm90<NW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  static int sms = 0;  // one persistent block per SM
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
     if (e != cudaSuccess) return (int)e;
+    attr_set[dev] = true;
   }
+  const int sms = sms_of[dev];
   const long long blocks = P.g.items < sms ? P.g.items : sms;
   pool1x1_sm90<NW><<<(int)blocks, kThreads, kSmemBytes, stream>>>(P);
   return (int)cudaGetLastError();

@@ -275,6 +275,9 @@ class Batch:
     lengths: List[int]
     wav_paths: List[List[str]]
     wavlm: Optional[np.ndarray] = None  # (B, 16, 768) with wavLM
+    # a host-sharded loader's lockstep filler: rows past n_valid are
+    # weight-0 padding (None: every row is real)
+    n_valid: Optional[int] = None
 
 
 def collate(samples: Sequence[Sample]) -> Batch:

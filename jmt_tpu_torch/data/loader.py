@@ -7,8 +7,12 @@ shuffle per epoch; the last batch may be short (the Runner pads it). An
 exception in the producer re-raises in the consumer. ``wait_seconds`` accumulates the time the consumer spent
 blocked on the queue: the loader wait that a train epoch reports.
 
-One host: ``host_shard`` (the JAX package's multi-host split of the
-sample order) is not ported and raises.
+``host_shard=(rank, world)`` splits the sample order over ranks: every
+rank shuffles alike (the same ``rng`` seed), takes the stride
+``order[rank::world]`` (disjoint and exhaustive over the ranks), and
+yields the longest rank's batch count, a short rank ending in filler
+batches (one sample, ``n_valid = 0``: all weight-0 padding), so that the
+ranks run their collectives in lockstep.
 """
 from __future__ import annotations
 
@@ -30,30 +34,38 @@ class PrefetchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  rng: Optional[np.random.Generator] = None,
                  wavlm_store=None, prefetch: int = 2, host_shard=None):
-        if host_shard is not None:
-            raise NotImplementedError("host_shard: multi-host loading is "
-                                      "not ported yet")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.rng = rng
         self.wavlm_store = wavlm_store
         self.prefetch = max(1, prefetch)
+        self.host_shard = host_shard
         self.wait_seconds = 0.0
 
     def _order(self) -> np.ndarray:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             (self.rng or np.random.default_rng()).shuffle(order)
+        if self.host_shard is not None:
+            idx, count = self.host_shard
+            order = order[idx::count]
         return order
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.host_shard is not None:
+            n = -(-n // self.host_shard[1])  # the longest rank's samples
+        return -(-n // self.batch_size)
 
     def _index_batches(self):
         order = self._order()
+        emitted = 0
         for i in range(0, len(order), self.batch_size):
             yield order[i:i + self.batch_size]
+            emitted += 1
+        for _ in range(emitted, len(self)):  # lockstep filler
+            yield order[:0]
 
     def __iter__(self) -> Iterator[Batch]:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -72,7 +84,12 @@ class PrefetchLoader:
         def producer():
             try:
                 for idx in self._index_batches():
-                    batch = collate([self.dataset[int(j)] for j in idx])
+                    if len(idx) == 0:  # lockstep filler: all padding
+                        batch = collate([self.dataset[0]])
+                        batch.n_valid = 0
+                    else:
+                        batch = collate([self.dataset[int(j)]
+                                         for j in idx])
                     if self.wavlm_store is not None:
                         batch.wavlm = self.wavlm_store.lookup_batch(
                             batch.wav_paths)

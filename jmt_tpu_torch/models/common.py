@@ -23,7 +23,9 @@ def cast(x: Optional[torch.Tensor], dtype: Optional[torch.dtype]
 
 
 class Linear(nn.Module):
-    """nn.Linear equivalent, weight (out, in), cast at use to ``dtype``."""
+    """nn.Linear equivalent, weight (out, in), cast at use to ``dtype``
+    (its output features split over devices under
+    ``parallel/tp.tensor_parallel``)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, dtype: Optional[torch.dtype] = None):
@@ -34,8 +36,9 @@ class Linear(nn.Module):
                      else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(cast(x, self.dtype), cast(self.weight, self.dtype),
-                        cast(self.bias, self.dtype))
+        from jmt_tpu_torch.parallel.tp import linear
+        return linear(cast(x, self.dtype), cast(self.weight, self.dtype),
+                      cast(self.bias, self.dtype))
 
 
 class LayerNorm(nn.Module):

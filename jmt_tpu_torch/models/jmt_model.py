@@ -190,20 +190,13 @@ def model_from_config(cfg) -> JMTModel:
     """The composed model of a ``core.config.Config``, with random
     backbones: the ``init_w_*`` policy loads its pretrained ones later,
     before the freeze partition (``models/pretrained.apply_pretrained``,
-    run by ``train/runner.Runner.initialize``). Raises
-    ``NotImplementedError`` for what the port leaves out: a data mesh of
-    more than one card (``mesh_data_parallel``). The heavy augmentations
+    run by ``train/runner.Runner.initialize``). The data mesh
+    (``mesh_data_parallel``) is the runner's, checked against the world
+    by ``parallel/mesh.make_mesh``. The heavy augmentations
     (``use_more_vision_data_augm`` / ``use_more_audio_data_augm``) are
     the train step's (``train/runner.Runner`` reads ``train_params``'
     flags); the val and test flags have no effect, as in JAX."""
     mp = cfg.model_params
-    n_mesh = cfg.mesh_data_parallel
-    if n_mesh == -1:
-        n_mesh = max(torch.cuda.device_count(), 1)
-    if n_mesh > 1:
-        raise NotImplementedError(
-            f"mesh_data_parallel={cfg.mesh_data_parallel} resolves to "
-            f"{n_mesh} cards: the port trains on one device")
     return JMTModel(
         vision_backbones=tuple(mp.l_vision_backbones),
         audio_backbones=tuple(mp.l_audio_backbones),

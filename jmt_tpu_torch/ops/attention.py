@@ -18,11 +18,11 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.profiler import record_function
 
 from jmt_tpu_torch.models.common import Linear, cast
 from jmt_tpu_torch.ops.kernels.fused_attention import fused_attention
+from jmt_tpu_torch.parallel.tp import linear
 
 
 def attention_core_bwd(q_scaled: torch.Tensor, k: torch.Tensor,
@@ -95,9 +95,9 @@ def multi_head_attention(q_in: torch.Tensor, k_in: torch.Tensor,
                          f"num_heads {num_heads}")
     wq, wk, wv = (cast(w, dtype) for w in in_proj_weight.chunk(3, dim=0))
     bq, bk, bv = (cast(b, dtype) for b in in_proj_bias.chunk(3))
-    q = F.linear(cast(q_in, dtype), wq, bq)  # (B, Lq, E)
-    k = F.linear(cast(k_in, dtype), wk, bk)  # (B, Lk, E)
-    v = F.linear(cast(v_in, dtype), wv, bv)
+    q = linear(cast(q_in, dtype), wq, bq)  # (B, Lq, E)
+    k = linear(cast(k_in, dtype), wk, bk)  # (B, Lk, E)
+    v = linear(cast(v_in, dtype), wv, bv)
 
     b, lq, _ = q.shape
     lk = k.shape[1]
@@ -109,8 +109,8 @@ def multi_head_attention(q_in: torch.Tensor, k_in: torch.Tensor,
     v = v.reshape(b, lk, num_heads, head_dim)
 
     out = attention_core(q, k, v).reshape(b, lq, embed_dim)
-    return F.linear(cast(out, dtype), cast(out_proj_weight, dtype),
-                    cast(out_proj_bias, dtype))
+    return linear(cast(out, dtype), cast(out_proj_weight, dtype),
+                  cast(out_proj_bias, dtype))
 
 
 class MultiheadAttention(nn.Module):

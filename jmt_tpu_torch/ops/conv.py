@@ -19,7 +19,8 @@ in torch's NC... layout:
 
 * ``conv_nd``: every conv of the backbones, the counterpart of JAX's
   ``conv_nd``: int8 (``ops/quant.py``) under an int8 context when the
-  weight is ``eligible``, else ``F.conv1d/2d/3d``.
+  weight is ``eligible``, else ``F.conv1d/2d/3d`` (its output channels
+  split over devices under ``parallel/tp.tensor_parallel``).
 
 The JAX package's space-to-depth stem (``conv3d_s2d_hw``) was a TPU
 lane-packing trick: a plain conv3d computes the same function, int8
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 
 from jmt_tpu_torch.models.common import cast
 from jmt_tpu_torch.ops import quant
+from jmt_tpu_torch.parallel import tp
 
 Pads = Tuple[Tuple[int, int], ...]
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -66,19 +68,21 @@ def conv_nd(x: torch.Tensor, weight: torch.Tensor, stride=1,
     eligible weight takes the int8 path (in calibration: records max |x|
     and computes as below); otherwise ``F.conv*``, with an asymmetric pad
     applied first."""
-    def float_conv():
-        xp, padding = x, 0
+    def conv(xs, w):
+        xp, padding = xs, 0
         if pads is not None:
             if any(lo != hi for lo, hi in pads):
-                xp = F.pad(x, pad_arg(pads))
+                xp = F.pad(xs, pad_arg(pads))
             else:
                 padding = tuple(lo for lo, _ in pads)
-        return _CONV[weight.ndim - 2](xp, weight, None, stride, padding,
-                                      dilation)
+        return _CONV[w.ndim - 2](xp, w, None, stride, padding, dilation)
+
+    def float_conv():
+        return conv(x, weight)
 
     if quant.quant_enabled() and quant.eligible(weight.shape):
         return quant.int8_conv(x, weight, stride, pads, dilation, float_conv)
-    return float_conv()
+    return tp.split_output(conv, x, weight)
 
 
 def max_pool_same(x: torch.Tensor, kernel: Sequence[int],

@@ -20,6 +20,16 @@ runs its forward a second time in the backward) a train-mode BN
 normalizes with the same batch statistics but leaves its buffers alone:
 the momentum update goes to scratch copies and the count stays, so a
 rematerialized step updates them once, as JAX's remat does.
+
+Under ``global_batch_statistics()`` (the train step of a process group,
+``train/loops.make_train_step``) a train-mode BN takes the statistics of
+the global batch, every rank's rows, as JAX's do under GSPMD: each rank's
+count, mean and sum of squared deviations are gathered
+(``parallel.mesh.all_gather_rows``, differentiable, so the backward
+reduces across ranks as well) and merged (Chan et al.); the running
+variance takes the unbiased factor of the global count N. Pad rows
+count, as in JAX. The recompute of a rematerialized unit gathers again,
+in the same order on every rank.
 """
 from __future__ import annotations
 
@@ -33,6 +43,21 @@ import torch.nn.functional as F
 
 
 _RECOMPUTE = threading.local()
+# process-wide, not per thread: the backward, and a remat recompute in it,
+# runs on autograd's threads
+_GLOBAL_STATS = {"on": False}
+
+
+@contextlib.contextmanager
+def global_batch_statistics(on: bool = True) -> Iterator[None]:
+    """Train-mode BN within normalizes with the statistics of the global
+    batch over the ranks of the process group."""
+    prev = _GLOBAL_STATS["on"]
+    _GLOBAL_STATS["on"] = on
+    try:
+        yield
+    finally:
+        _GLOBAL_STATS["on"] = prev
 
 
 @contextlib.contextmanager
@@ -72,7 +97,35 @@ class TorchBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
         self.num_batches_tracked.zero_()
 
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the global batch (``global_batch_statistics``)."""
+        from jmt_tpu_torch.parallel.mesh import all_gather_rows
+        x32 = x.float()
+        c = x32.shape[1]
+        dims = [0] + list(range(2, x32.ndim))
+        shape = (1, c) + (1,) * (x32.ndim - 2)
+        mean_l = x32.mean(dims)
+        m2_l = ((x32 - mean_l.view(shape)) ** 2).sum(dims)
+        n_l = torch.full((1,), float(x32.numel() // c), device=x32.device)
+        stats = all_gather_rows(torch.cat([mean_l, m2_l, n_l])[None])
+        means, m2s, ns = stats[:, :c], stats[:, c:2 * c], stats[:, 2 * c:]
+        n = ns.sum()
+        mean = (ns * means).sum(0) / n
+        var = (m2s + ns * (means - mean) ** 2).sum(0) / n      # biased
+        if not getattr(_RECOMPUTE, "on", False):
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(
+                    m * var * (n / torch.clamp(n - 1, min=1)))
+                self.num_batches_tracked.add_(1)
+        y = (x32 - mean.view(shape)) / torch.sqrt(var.view(shape) + self.eps)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype) if self.dtype is not None else y
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and _GLOBAL_STATS["on"]:
+            return self._global_forward(x)
         mean, var = self.running_mean, self.running_var
         if self.training and getattr(_RECOMPUTE, "on", False):
             # the same call on scratch buffers: the same batch statistics

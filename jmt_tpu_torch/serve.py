@@ -31,6 +31,11 @@ under ``torch.inference_mode()``.
   (``ops/quant.py``); each graph is captured under the mode, so a static
   graph bakes its scales in. ``calibrate`` measures static scales on a
   request and captures the graphs again.
+* **Tensor parallelism** (``model_mesh``, ``parallel/tp.py``): the
+  output channels of the large conv and dense layers split over a list of
+  devices (one card may appear more than once), the rest on the lead
+  device; a TP server runs eagerly, with no CUDA graph (one graph cannot
+  span several devices).
 * ``StreamingSession``: per-video stitched, clipped and smoothed V/A as
   eval windows arrive; ``measure_latency``: request p50/p90 per bucket.
 
@@ -44,7 +49,7 @@ latency JSON)::
 
     python -m jmt_tpu_torch.serve [--exp-dir DIR] [--buckets 1,8] \\
         [--heavy] [--wavlm-checkpoint PT] [--int8 | --int8-static] \\
-        [--device cpu]
+        [--tp N] [--device cpu]
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ import torch
 from jmt_tpu_torch.device import resolve_device
 from jmt_tpu_torch.ops import quant
 from jmt_tpu_torch.ops.mel import AUDIO_SAMPLES
+from jmt_tpu_torch.parallel import tp
 from jmt_tpu_torch.train.loops import calibration_forward, eval_forward
 
 WARMUP_FORWARDS = 2
@@ -175,12 +181,16 @@ class InferenceServer:
                  img_size: int = 112, audio_samples: Optional[int] = None,
                  use_wavlm: Optional[bool] = None,
                  wavlm_frontend: Optional[WavLMFrontend] = None,
-                 device=None, int8=False, int8_scales=None):
+                 device=None, int8=False, int8_scales=None,
+                 model_mesh: Optional[Sequence] = None):
         """device: None = the card (raises when there is none), where each
         bucket's graph is captured here; ``"cpu"`` runs the plain PyTorch
         path eagerly. int8: False, True (dynamic activation scales) or
         ``"static"`` (the calibrated ``int8_scales``, from
-        ``train.loops.make_calibration_step`` or ``calibrate``)."""
+        ``train.loops.make_calibration_step`` or ``calibrate``).
+        model_mesh: tensor-parallel serving over these devices
+        (``parallel/tp.make_model_mesh``), eager, on the lead device
+        ``model_mesh[0]`` (``device``, if given, must be it)."""
         if int8 not in (False, True, "static"):
             raise ValueError(f"int8={int8!r}: False, True or 'static'")
         self.int8 = int8
@@ -192,7 +202,17 @@ class InferenceServer:
                 "train.loops.make_calibration_step, or construct with "
                 "int8=True and call .calibrate(clips, audio[, wavlm]) on "
                 "a representative request")
-        self.device = resolve_device(device)
+        self.model_mesh = (None if model_mesh is None
+                           else tp.make_model_mesh(-1, model_mesh))
+        if self.model_mesh is None:
+            self.device = resolve_device(device)
+            self.tp_shardings = None
+        else:
+            self.device = resolve_device(self.model_mesh[0])
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not the model mesh's "
+                                 f"lead device {self.device}")
+            self.tp_shardings = tp.shard_params(model, self.model_mesh)
         self.model = model.to(self.device).eval()
         self.seq = seq
         self.img = img_size
@@ -206,9 +226,9 @@ class InferenceServer:
 
     def _capture(self) -> None:
         """One graph per bucket on the card, under the server's int8 mode
-        (the previous graphs released first)."""
+        (the previous graphs released first); none for a TP server."""
         self.graphs: Dict[int, BucketGraph] = {}
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.model_mesh is None:
             for b in self.buckets:
                 self.graphs[b] = BucketGraph(self, b)
         self._captured_at = self._addresses()
@@ -231,10 +251,12 @@ class InferenceServer:
     def forward(self, arrays: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The eager forward of one bucket-shaped batch of device tensors
-        -> (vouts, aouts), in the server's int8 mode."""
-        return eval_forward(self.model, arrays, self.int8,
-                            self.int8_scales if self.int8 == "static"
-                            else None)
+        -> (vouts, aouts), in the server's int8 mode, split over its model
+        mesh."""
+        with tp.tensor_parallel(self.model_mesh):
+            return eval_forward(self.model, arrays, self.int8,
+                                self.int8_scales if self.int8 == "static"
+                                else None)
 
     def calibrate(self, clips: np.ndarray, audio: np.ndarray,
                   wavlm: Optional[np.ndarray] = None) -> List[float]:
@@ -279,8 +301,8 @@ class InferenceServer:
             host["wavlm"] = wavlm
         graph = self.graphs.get(b)
         if graph is None:
-            arrays = {k: torch.from_numpy(_pad(x, b)).to(self.device)
-                      for k, x in host.items()}
+            arrays = tp.replicate({k: _pad(x, b) for k, x in host.items()},
+                                  [self.device])
         else:
             arrays = graph.inputs
             for k, x in host.items():
@@ -337,13 +359,17 @@ class InferenceServer:
     def from_experiment(cls, exp_dir: str, buckets: Sequence[int] = (1, 8),
                         weights: str = "auto",
                         wavlm_frontend: Optional[WavLMFrontend] = None,
-                        device=None, int8=False,
-                        int8_scales=None) -> "InferenceServer":
-        """Build from a finished training run (``experiment_model``); the
-        weights are loaded before the graphs are captured."""
-        return cls(experiment_model(exp_dir, weights, device),
+                        device=None, int8=False, int8_scales=None,
+                        model_mesh: Optional[Sequence] = None
+                        ) -> "InferenceServer":
+        """Build from a finished training run (``experiment_model``, on
+        the model mesh's lead device when there is one); the weights are
+        loaded before the graphs are captured."""
+        lead = device if model_mesh is None else model_mesh[0]
+        return cls(experiment_model(exp_dir, weights, lead),
                    buckets=buckets, wavlm_frontend=wavlm_frontend,
-                   device=device, int8=int8, int8_scales=int8_scales)
+                   device=device, int8=int8, int8_scales=int8_scales,
+                   model_mesh=model_mesh)
 
 
 def experiment_model(exp_dir: str, weights: str = "auto", device=None):
@@ -529,10 +555,6 @@ def _latencies(server: InferenceServer) -> Dict:
         for b in server.buckets}}
 
 
-# the JAX command line's options that have no counterpart yet
-_NOT_PORTED = {"tp": "tensor-parallel serving (ROADMAP.md A.8)"}
-
-
 def _calibration_request(seq: int, img: int, audio_samples: int,
                          wavlm_dim: Optional[int]):
     """The JAX command line's calibration request: one seed-0 synthetic
@@ -566,7 +588,9 @@ def main(argv=None) -> int:
                    help="WavLM state dict: serve raw audio, computing the "
                         "wavLM features server-side (WavLMFrontend)")
     p.add_argument("--tp", type=int, default=0,
-                   help="not ported: tensor-parallel serving")
+                   help="tensor-parallel serving over the first N cards "
+                        "(parallel/tp.py; eager, no CUDA graphs); with "
+                        "--device, N shards on that device")
     p.add_argument("--int8", action="store_true",
                    help="int8 inference, dynamic activation scales "
                         "(ops/quant.py)")
@@ -579,10 +603,10 @@ def main(argv=None) -> int:
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain PyTorch path)")
     args = p.parse_args(argv)
-    for key, what in _NOT_PORTED.items():
-        if getattr(args, key):
-            raise NotImplementedError(
-                f"--{key.replace('_', '-')}: {what} is not ported yet")
+    mesh = None
+    if args.tp:
+        mesh = tp.make_model_mesh(args.tp, None if args.device is None
+                                  else [args.device] * args.tp)
     if args.compilation_cache:
         print("note: --compilation-cache is ignored: the server compiles "
               "nothing at request time", file=sys.stderr)
@@ -594,7 +618,8 @@ def main(argv=None) -> int:
         frontend = (WavLMFrontend.from_checkpoint(args.wavlm_checkpoint,
                                                   device=args.device)
                     if args.wavlm_checkpoint else None)
-        model = experiment_model(args.exp_dir, device=args.device)
+        model = experiment_model(args.exp_dir, device=args.device
+                                 if mesh is None else mesh[0])
     else:
         if args.wavlm_checkpoint:
             print("warning: --wavlm-checkpoint applies only with --exp-dir "
@@ -608,10 +633,11 @@ def main(argv=None) -> int:
                      else 768)
         req = _calibration_request(16, 112, AUDIO_SAMPLES, wavlm_dim)
         int8, scales = "static", calibration_scales(
-            model, *req, frontend=frontend, device=args.device)
+            model, *req, frontend=frontend,
+            device=args.device if mesh is None else mesh[0])
     server = InferenceServer(model, buckets=buckets, wavlm_frontend=frontend,
                              device=args.device, int8=int8,
-                             int8_scales=scales)
+                             int8_scales=scales, model_mesh=mesh)
     print(json.dumps(_latencies(server)))
     return 0
 

@@ -24,6 +24,18 @@ Usage::
 
 The entry points run on the card; ``device="cpu"`` runs the plain PyTorch
 path on the CPU, and with no card present the default raises.
+
+Under a process group (``parallel/mesh``: one rank per card, each with
+its row block of the global batch) the train step computes what JAX's
+does on the global batch: BN in train mode takes the global batch's
+statistics (``ops/norm.global_batch_statistics``); every rank gathers
+the outputs, labels and row weights (a differentiable all-gather) and
+computes the CCC loss over the whole batch (a CCC does not split into a
+mean of per-rank CCCs); the augmentation parameters are drawn for the
+global batch from the step's generator and each rank takes its rows;
+the ranks' gradients are averaged before the optimizer step (the
+gather's backward sums over ranks, so each rank's gradient holds
+``world`` times its share).
 """
 from __future__ import annotations
 
@@ -44,6 +56,8 @@ from jmt_tpu_torch.ops.audio_augment import (AudioAugment,
                                              sample_audio_augment)
 from jmt_tpu_torch.ops.ccc import ccc_loss
 from jmt_tpu_torch.ops.mel import log_mel
+from jmt_tpu_torch.ops.norm import global_batch_statistics
+from jmt_tpu_torch.parallel import mesh
 from jmt_tpu_torch.train.optim import build_optimizer
 from jmt_tpu_torch.train.state import (TrainState, frozen_prefixes,
                                        partition_params)
@@ -128,6 +142,34 @@ def _check_state(model, state: TrainState) -> None:
                          "state's")
 
 
+def _global_draws(model, b: int, s: int, frames: int, generator, dev,
+                  more_vision_augm: bool, more_audio_augm: bool,
+                  color_factors, vision_augment, audio_augment) -> tuple:
+    """(color_factors, vision_augment, audio_augment): those not given
+    drawn from ``generator`` for the global batch of ``world * b`` rows,
+    in the order that one process draws them, and cut to this rank's
+    rows."""
+    rank, world = mesh.proc_info()
+
+    def mine(x, per_row):
+        return x[rank * b * per_row:(rank + 1) * b * per_row]
+
+    if len(model.vision_backbones) > 0:
+        if more_vision_augm and vision_augment is None:
+            va = sample_vision_augment(generator, world * b * s * frames,
+                                       device=dev)
+            vision_augment = VisionAugment(*(mine(t, s * frames)
+                                             for t in va))
+        elif not more_vision_augm and color_factors is None:
+            cf = sample_color_factors(generator, world * b * s, device=dev)
+            color_factors = tuple(mine(t, s) for t in cf)
+    if ("ResNet18" in model.audio_backbones and more_audio_augm
+            and audio_augment is None):
+        aa = sample_audio_augment(generator, world * b * s, device=dev)
+        audio_augment = AudioAugment(*(mine(t, s) for t in aa))
+    return color_factors, vision_augment, audio_augment
+
+
 def make_train_step(model, more_vision_augm: bool = False,
                     more_audio_augm: bool = False, device=None) -> Callable:
     """Returns ``train_step(state, arrays, generator=None,
@@ -147,6 +189,13 @@ def make_train_step(model, more_vision_augm: bool = False,
     ``train_step.forward`` / ``.backward`` / ``.optimizer`` (a profile
     attributes the device time of the forward and optimizer kernels to
     them; the backward's run on autograd's own thread).
+
+    Under a process group of more than one rank, ``arrays`` are this
+    rank's rows of the global batch (the same count on every rank), the
+    step computes JAX's global step (the module docstring), and the
+    returned ``loss`` is the global one, ``vouts``/``aouts`` this rank's
+    rows. Give every rank the same ``generator`` (the global batch's
+    draws are cut to the rank's rows).
     """
     dev = resolve_device(device)
     model.to(dev)
@@ -158,28 +207,41 @@ def make_train_step(model, more_vision_augm: bool = False,
         _check_state(model, state)
         x = _on(arrays, dev)
         b, s = x["labels_v"].shape[:2]
-        if (color_factors is None and not more_vision_augm
+        ranks = mesh.proc_info()[1]
+        if ranks > 1:
+            color_factors, vision_augment, audio_augment = _global_draws(
+                model, b, s, x["clips"].shape[2], generator, dev,
+                more_vision_augm, more_audio_augm, color_factors,
+                vision_augment, audio_augment)
+        elif (color_factors is None and not more_vision_augm
                 and len(model.vision_backbones) > 0):
             color_factors = sample_color_factors(generator, b * s,
                                                  device=dev)
         model.train()
-        with record_function("train_step.forward"):
-            spec, clips = preprocess(model, x, color_factors,
-                                     more_vision_augm, more_audio_augm,
-                                     vision_augment, audio_augment,
-                                     generator)
-            vouts, aouts = model(spec, clips, x.get("wavlm"))
-            rw = x.get("row_weight")
-            w = None if rw is None else \
-                rw[:, None].to(vouts.dtype).expand(vouts.shape).reshape(-1)
-            loss = (ccc_loss(vouts.reshape(-1), x["labels_v"].reshape(-1),
-                             weight=w)
-                    + ccc_loss(aouts.reshape(-1), x["labels_a"].reshape(-1),
-                               weight=w))
-        state.optimizer.zero_grad(set_to_none=True)
-        with record_function("train_step.backward"):
-            loss.backward()
+        with global_batch_statistics(ranks > 1):
+            with record_function("train_step.forward"):
+                spec, clips = preprocess(model, x, color_factors,
+                                         more_vision_augm, more_audio_augm,
+                                         vision_augment, audio_augment,
+                                         generator)
+                vouts, aouts = model(spec, clips, x.get("wavlm"))
+                rw = x.get("row_weight")
+                w = None if rw is None else rw[:, None].to(
+                    vouts.dtype).expand(vouts.shape)
+                g = mesh.all_gather_rows
+                wg = None if w is None else g(w).reshape(-1)
+                loss = (ccc_loss(g(vouts).reshape(-1),
+                                 g(x["labels_v"]).reshape(-1), weight=wg)
+                        + ccc_loss(g(aouts).reshape(-1),
+                                   g(x["labels_a"]).reshape(-1), weight=wg))
+            state.optimizer.zero_grad(set_to_none=True)
+            with record_function("train_step.backward"):
+                loss.backward()
         with record_function("train_step.optimizer"):
+            if ranks > 1:
+                mesh.average_gradients(
+                    p for grp in state.optimizer.param_groups
+                    for p in grp["params"])
             state.optimizer.step()
         return loss.detach(), vouts.detach(), aouts.detach()
 

@@ -1,4 +1,5 @@
-"""Experiment orchestrator: the reference's main() on one device.
+"""Experiment orchestrator: the reference's main(), on one card or on
+several ranks.
 
 Counterpart of ``jmt_tpu/train/runner.py`` ``Runner``: the model and the
 datasets of a config, an epoch loop with the reference's per-epoch reseed
@@ -33,7 +34,21 @@ events on the card), the seconds the loop spent on checkpoints (the CPU
 copies and the wait for the write before; the writes run on a thread)
 and the peak memory.
 With ``profile_dir``, a ``torch.profiler`` trace of train steps 2-4 of
-``profile_epoch`` is written there.
+``profile_epoch`` is written there (by rank 0).
+
+Under a process group (``parallel/mesh``, launched by
+``torch.distributed.run``; one rank per card) the runner is JAX's pod
+runner: ``batch_size`` stays global and splits over the ranks
+(``make_mesh`` checks ``mesh_data_parallel`` against the world); each
+rank's train loader takes its stride of the sample order
+(``PrefetchLoader(host_shard=...)``) and the train step computes the
+global step (``train/loops.make_train_step``); eval loaders read the
+whole split on every rank and each rank runs its row block; the epoch
+metrics and the stitching gather every rank's rows (``gather_rows``);
+the preemption flag is agreed at every boundary (``preempt.agreed``);
+``fit`` first checks that every rank resumed the same checkpoint; rank 0
+alone writes checkpoints, weights and artifacts, so a resume needs
+``weights_dir`` on storage that every rank reads.
 """
 from __future__ import annotations
 
@@ -56,23 +71,12 @@ from jmt_tpu_torch.device import resolve_device
 from jmt_tpu_torch.eval.stitch import Stitcher, write_challenge_txt
 from jmt_tpu_torch.models.jmt_model import model_from_config
 from jmt_tpu_torch.ops.ccc import ccc_metric
+from jmt_tpu_torch.parallel import mesh as M
+from jmt_tpu_torch.parallel.mesh import pad_batch_to  # noqa: F401
 from jmt_tpu_torch.train import optim as O
 from jmt_tpu_torch.train.loops import (device_batch, init_state,
                                        make_eval_step, make_train_step)
 from jmt_tpu_torch.train.state import param_count
-
-
-def pad_batch_to(arrays: Dict[str, np.ndarray], batch: int):
-    """Zero-pad every array's leading axis to ``batch``; returns
-    ``(arrays, n_real)``."""
-    def pad(x):
-        n = x.shape[0]
-        if n == batch:
-            return x
-        return np.pad(x, [(0, batch - n)] + [(0, 0)] * (x.ndim - 1))
-
-    n_real = next(iter(arrays.values())).shape[0]
-    return {k: pad(np.asarray(v)) for k, v in arrays.items()}, n_real
 
 
 @dataclasses.dataclass
@@ -131,6 +135,12 @@ class Runner:
         self._mid_epoch: Optional[dict] = None
         # the train timings of the epoch that train_epoch ran last
         self.last_timing: Dict[str, float] = {}
+        # the data mesh (cfg.mesh_data_parallel x cfg.mesh_dcn ranks, the
+        # world) and this rank's (index, count): train loaders split the
+        # samples over the ranks, eval loaders read the whole split and
+        # each rank keeps its row block
+        self.mesh = M.make_mesh(cfg.mesh_data_parallel, n_dcn=cfg.mesh_dcn)
+        self.procs = M.host_shard()
 
     # ------------------------------------------------------------------
     def initialize(self) -> None:
@@ -148,17 +158,35 @@ class Runner:
                                 torch.Generator().manual_seed(self.cfg.SEED),
                                 variables_hook=pretrained_hook,
                                 device=self.device)
+        n = self.mesh
+        for split in ("train_params", "val_params", "test_params"):
+            bsz = getattr(self.cfg, split).loader_params.batch_size
+            if bsz % n:
+                raise ValueError(
+                    f"{split}.loader_params.batch_size={bsz} must be "
+                    f"divisible by the {n}-rank data mesh (batch_size is "
+                    f"the global batch)")
         self.log.log({
             "trainable_params": param_count(self.model, self.state.trainable),
             "frozen_params": param_count(self.model, self.state.frozen),
-            "device": str(self.device)})
+            "device": str(self.device), "mesh_devices": n})
 
-    def _device_arrays(self, batch, bsz: int, copies: Optional[list] = None):
-        """Host batch -> padded arrays with ``row_weight``, on the device;
-        returns (arrays, n_real). With ``copies``, the copy is bracketed
-        by CUDA events appended there."""
-        arrays, n_real = pad_batch_to(device_batch(batch), bsz)
-        w = np.zeros(bsz, np.float32)
+    def _device_arrays(self, batch, bsz: int, copies: Optional[list] = None,
+                       distributed_load: bool = False):
+        """Host batch -> padded arrays with ``row_weight``, this rank's
+        rows on the device; returns (arrays, n_real). ``distributed_load``:
+        ``batch`` is this rank's share of the global batch (a host-sharded
+        train loader), padded to ``bsz / ranks`` rows, and n_real counts
+        its real rows; otherwise it is the global batch, read alike on
+        every rank, padded to ``bsz``, n_real counts the global batch's
+        real rows and the rank keeps its block. With ``copies``, the copy
+        is bracketed by CUDA events appended there."""
+        _, count = self.procs
+        pad_to = bsz // count if distributed_load else bsz
+        arrays, n_real = pad_batch_to(device_batch(batch), pad_to)
+        if batch.n_valid is not None:  # a lockstep filler batch
+            n_real = min(n_real, batch.n_valid)
+        w = np.zeros(pad_to, np.float32)
         w[:n_real] = 1.0
         arrays["row_weight"] = w
         on_card = self.device.type == "cuda" and copies is not None
@@ -166,8 +194,7 @@ class Runner:
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
-        out = {k: torch.from_numpy(x).to(self.device)
-               for k, x in arrays.items()}
+        out = M.shard_batch(arrays, self.device, distributed_load, pad_to)
         if on_card:
             events[1].record()
             copies.append(events)
@@ -184,11 +211,15 @@ class Runner:
     def _step_augment(self, epoch: int, step: int, n_clips: int) -> dict:
         """The train step's augmentation, as its keyword arguments: the
         colour factors (``_color_factors``), or under a heavy augmentation
-        the step's generator, which the step draws them from (``loops.
-        preprocess``)."""
+        or a process group the step's generator, which the step draws
+        them from (``loops.preprocess``; under a group for the global
+        batch, and the rank's dropout stream is its own)."""
         tp = self.cfg.train_params
-        if tp.use_more_vision_data_augm or tp.use_more_audio_data_augm:
-            return {"generator": step_generator(self.cfg.SEED, epoch, step)}
+        rank, count = self.procs
+        if (count > 1 or tp.use_more_vision_data_augm
+                or tp.use_more_audio_data_augm):
+            return {"generator": step_generator(self.cfg.SEED, epoch, step,
+                                                rank)}
         return {"color_factors": self._color_factors(epoch, step, n_clips)}
 
     def _export_trace(self, profiler, epoch: int) -> None:
@@ -213,12 +244,16 @@ class Runner:
             epoch_loss = me["epoch_loss"]
             vout, aout = list(me["vout"]), list(me["aout"])
             vtar, atar = list(me["vtar"]), list(me["atar"])
+        n_proc = self.procs[1]
         loader = PrefetchLoader(
-            self.train_ds, bsz, shuffle=cfg.train_params.loader_params.shuffle,
+            self.train_ds, bsz // n_proc,
+            shuffle=cfg.train_params.loader_params.shuffle,
             rng=rng, wavlm_store=self.wavlm_store,
-            prefetch=cfg.train_params.loader_params.prefetch)
+            prefetch=cfg.train_params.loader_params.prefetch,
+            host_shard=self.procs if n_proc > 1 else None)
         profiler = None
-        profiling = bool(cfg.profile_dir) and epoch == cfg.profile_epoch
+        profiling = (bool(cfg.profile_dir) and epoch == cfg.profile_epoch
+                     and M.is_main_process())
         copies, step_s = [], []
         t_start = t_log = time.perf_counter()
         seen = 0
@@ -227,7 +262,8 @@ class Runner:
             if seen <= skip:
                 continue  # replay the data order; the step ran before
             t_step = time.perf_counter()
-            arrays, n_real = self._device_arrays(batch, bsz, copies)
+            arrays, n_real = self._device_arrays(batch, bsz, copies,
+                                                 distributed_load=True)
             s = batch.labels_v.shape[1]
             augment = self._step_augment(epoch, n, bsz * s)
             if profiling and n == 2:
@@ -247,12 +283,14 @@ class Runner:
                                  step_seconds=(now - t_log)
                                  / cfg.log_every_steps, lr=lr)
                 t_log = now
-            # the epoch's CCC over the real rows only
-            keep = np.repeat(np.arange(bsz) < n_real, s)
+            # the epoch's CCC over the real rows of the global batch
+            # (row_weight marks them: a rank's pad rows sit at its block's
+            # tail)
+            keep = np.repeat(M.gather_rows(arrays["row_weight"]) > 0.5, s)
             for acc, x in ((vout, vouts), (aout, aouts),
                            (vtar, arrays["labels_v"]),
                            (atar, arrays["labels_a"])):
-                acc.extend(x.float().cpu().numpy().reshape(-1)[keep])
+                acc.extend(M.gather_rows(x).reshape(-1)[keep])
             if (cfg.preempt_save_steps and cfg.graceful_preemption
                     and n % cfg.preempt_save_steps == 0 and preempt.agreed()):
                 self._preempted_mid = {
@@ -294,10 +332,9 @@ class Runner:
             vouts, aouts = self.eval_step(self.state, arrays)
             labels = ((batch.labels_v, batch.labels_a) if with_labels
                       else (None, None))
-            stitcher.add_batch(vouts.float().cpu().numpy(),
-                               aouts.float().cpu().numpy(), batch.anchors,
-                               batch.videos, batch.lengths, *labels,
-                               n_real=n_real)
+            stitcher.add_batch(M.gather_rows(vouts), M.gather_rows(aouts),
+                               batch.anchors, batch.videos, batch.lengths,
+                               *labels, n_real=n_real)
         return stitcher
 
     def validate(self, dataset=None, store_pkl: str = "") -> EpochMetrics:
@@ -305,7 +342,7 @@ class Runner:
         stitcher = self._stitch(dataset if dataset is not None
                                 else self.val_ds, self.cfg.val_params, True)
         ccc_v, ccc_a = stitcher.scores()
-        if store_pkl:
+        if store_pkl and M.is_main_process():
             stitcher.dump_pkl(store_pkl)
         return EpochMetrics(valid_ccc_v=ccc_v, valid_ccc_a=ccc_a)
 
@@ -314,9 +351,10 @@ class Runner:
         if self.test_ds is None:
             raise ValueError("no test split is configured")
         stitcher = self._stitch(self.test_ds, self.cfg.test_params, False)
-        write_challenge_txt(stitcher, dir_out)
-        if store_pkl:
-            stitcher.dump_pkl(store_pkl)
+        if M.is_main_process():
+            write_challenge_txt(stitcher, dir_out)
+            if store_pkl:
+                stitcher.dump_pkl(store_pkl)
 
     # ------------------------------------------------------------------
     def snapshot_best(self) -> None:
@@ -326,7 +364,9 @@ class Runner:
     def dump_best(self, acp: Optional[ckpt.AsyncCheckpointer] = None
                   ) -> None:
         """Write the best epoch's components to SavedWeights/ (the current
-        weights when no epoch was validated)."""
+        weights when no epoch was validated); rank 0 alone."""
+        if not M.is_main_process():
+            return
         sd = (self._best_snapshot if self._best_snapshot is not None
               else ckpt.host_copy(self.model.state_dict()))
         if acp is not None:
@@ -388,6 +428,8 @@ class Runner:
 
     def _save_state(self, acp: Optional[ckpt.AsyncCheckpointer] = None,
                     mid_epoch: Optional[dict] = None) -> None:
+        if not M.is_main_process():
+            return
         extra = self._ckpt_extra(mid_epoch)
         if acp is not None:
             acp.save_train_state(self.exp.weights_dir, self.state, extra)
@@ -411,19 +453,42 @@ class Runner:
         self.log.log(f"resumed from {path} at epoch {self.state.epoch}{at}")
         return True
 
+    def _assert_pod_resume_agreement(self, start: int) -> None:
+        """Every rank must start from the same checkpoint: rank 0 alone
+        writes ``train_state.pt`` and ``preempted.txt``, so with a
+        ``weights_dir`` of its own on each host, a relaunch resumes rank 0
+        at epoch E while the others start at 0, and their collectives
+        never match. Every rank reaches ``fit``, where this gather fails
+        at once instead."""
+        _, count = self.procs
+        if count == 1:
+            return
+        mid = self._mid_epoch["step"] if self._mid_epoch else -1
+        allv = M.all_agree([start, mid])
+        if not (allv == allv[0]).all():
+            raise RuntimeError(
+                "pod resume disagreement: per-rank (start_epoch, "
+                f"mid_epoch_step) = {allv.tolist()}: the ranks restored "
+                "different checkpoints. train_state.pt and preempted.txt "
+                "are written by rank 0 only; put weights_dir on storage "
+                "shared by every rank")
+
     def fit(self) -> Dict[str, object]:
         if self.exp.already_done():
             self.log.log("experiment already passed; skipping "
                          "(passed.txt guard)")
             return {}
-        self.exp.create()
+        if M.is_main_process():
+            self.exp.create()
         if self.state is None:
             self.initialize()
         cfg = self.cfg
+        self._assert_pod_resume_agreement(cfg.model_params.start_epoch)
         if cfg.graceful_preemption:
             preempt.install()
         preempted = False
-        acp = ckpt.AsyncCheckpointer() if cfg.async_checkpoint else None
+        acp = (ckpt.AsyncCheckpointer()
+               if cfg.async_checkpoint and M.is_main_process() else None)
         try:
             for epoch in range(cfg.model_params.start_epoch,
                                cfg.model_params.max_epochs):
@@ -494,8 +559,9 @@ class Runner:
                 # is written after the state it vouches for
                 if acp is not None:
                     acp.wait()
-                with open(self.exp.preempted_marker, "w") as f:
-                    f.write("graceful preemption; re-launch resumes\n")
+                if M.is_main_process():
+                    with open(self.exp.preempted_marker, "w") as f:
+                        f.write("graceful preemption; re-launch resumes\n")
                 if self._best_snapshot is not None:
                     self.dump_best(acp)
             else:
@@ -505,7 +571,7 @@ class Runner:
                 acp.close()
             if cfg.graceful_preemption:
                 preempt.uninstall()
-        if not preempted:
+        if not preempted and M.is_main_process():
             self._plot_tracker()
             self.exp.finalize({"best": self.best, "tracker": self.tracker})
         return {"best": self.best, "tracker": self.tracker,

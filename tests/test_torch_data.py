@@ -118,6 +118,9 @@ def test_loader_order_collate_and_wavlm_lookup_are_the_jax_ones():
 
 
 def test_loader_reraises_the_producer_error_and_refuses_host_shard():
+    """The producer's error re-raises in the consumer, with or without a
+    ``host_shard`` (ported since multi-rank loading: rank 1 of 2 reads
+    the odd samples; ``tests/test_torch_multihost.py``)."""
     class Broken:
         def __len__(self):
             return 4
@@ -127,8 +130,8 @@ def test_loader_reraises_the_producer_error_and_refuses_host_shard():
 
     with pytest.raises(RuntimeError, match="bad sample 0"):
         list(loader.PrefetchLoader(Broken(), 2))
-    with pytest.raises(NotImplementedError, match="host_shard"):
-        loader.PrefetchLoader(Broken(), 2, host_shard=(0, 2))
+    with pytest.raises(RuntimeError, match="bad sample 1"):
+        list(loader.PrefetchLoader(Broken(), 2, host_shard=(1, 2)))
 
 
 # ---------------------------------------------------------------------------

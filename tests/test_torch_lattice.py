@@ -279,8 +279,10 @@ def test_invalid_lattices_are_rejected_on_both_sides(bad):
     ("train_params.use_more_vision_data_augm", True),
     ("val_params.use_more_audio_data_augm", True)])
 def test_unported_keys_raise(key, value):
-    """What the port leaves out raises ``NotImplementedError`` naming
-    the key: a data mesh of more than one card. ``init_w_*`` is ported
+    """Keys ported after they raised. ``mesh_data_parallel`` 2: the model
+    builds, and the runner's data mesh (``parallel/mesh.make_mesh``)
+    raises naming the launch it needs, one process per card, in a run of
+    one process. ``init_w_*`` is ported
     (``models/pretrained.py``): the model builds with random backbones,
     and loading the pretrained ones raises without a weights directory,
     as in JAX. ``remat_backbones`` and the heavy augmentations are ported:
@@ -306,8 +308,10 @@ def test_unported_keys_raise(key, value):
             apply_pretrained(cfg, model)
         return
     if key == "mesh_data_parallel":
-        with pytest.raises(NotImplementedError, match=key):
-            model_from_config(cfg)
+        from jmt_tpu_torch.parallel.mesh import make_mesh
+        model_from_config(cfg)
+        with pytest.raises(ValueError, match="torch.distributed.run"):
+            make_mesh(cfg.mesh_data_parallel, n_dcn=cfg.mesh_dcn)
         return
     _train_step_as_the_runner(cfg, key)
 

@@ -20,8 +20,8 @@ modes (whose V differ by 0.026 here).
 bit for bit, the same errors and challenge files, and the traces of
 ``eval/stitch``. ``measure_latency`` returns JAX's keys; the command line
 serves the directory, in int8 too (``--int8``, ``--int8-static``), and
-refuses what is not ported (``--tp``). int8 on the CPU: the server equals
-``make_eval_step(int8=True)``, and ``calibrate`` returns
+refuses a ``--tp`` mesh larger than the host's cards. int8 on the CPU:
+the server equals ``make_eval_step(int8=True)``, and ``calibrate`` returns
 ``make_calibration_step``'s scales and switches to static.
 """
 import json
@@ -289,8 +289,12 @@ def test_command_line_serves_the_experiment(experiment, capsys):
 
 @pytest.mark.parametrize("flag", [["--tp", "2"]])
 def test_command_line_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        serve.main(flag + ["--device", "cpu"])
+    """``--tp`` is ported (``tests/test_torch_tp.py``): a model mesh of
+    more cards than the host has (2 on a host without cards) is
+    refused."""
+    n = max(int(flag[1]), torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match=f"model mesh of {n}"):
+        serve.main([flag[0], str(n)])
 
 
 @pytest.mark.parametrize("flag", ["--int8", "--int8-static"])
