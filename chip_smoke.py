@@ -29,12 +29,14 @@ failure raises and the script exits non-zero:
    library yardstick (CUDA events), and the bound. int8: every distinct
    eligible conv of the flagship at bucket 8 (bf16, inception unfused: 110
    convs, 77 shapes), recorded in a calibration forward, through K5 on
-   random s8 operands, its s32 sums and bf16 output bitwise equal to the
-   plain version's (a float64 conv), timed beside the plain version,
+   random s8 operands (x in K6's rows, the weight prepared once, as the
+   main path runs it), its s32 sums and bf16 output bitwise equal to the
+   plain version's (a float64 conv), timed by CUDA-graph replay beside
    cuDNN's bf16 conv and, on the 1 x 1 stride-1 shapes, torch._int_mm
-   (held to K5's sums); K6 at each conv's input, bitwise (q and s,
-   dynamic and static) in its dtype and layout, at four shapes also in
-   f32 and the other layout; per-family sums;
+   (held to K5's sums), the plain version by CUDA events; K6 at each
+   conv's input, bitwise (q and s, dynamic and static) in its dtype and
+   layout, at four shapes also in f32 and the other layout, timed dynamic
+   and static; per-family sums and bounds;
 3. the flagship server (the main path): R2D1 MAX + I3D+TCN (112 -> 224 fold)
    with encoder_plus_self_attention, ResNet18 & wavLM with
    encoder_plus_self_attention, JMT SELF_ATTEN, 1 head, 1 layer, at full
@@ -76,11 +78,14 @@ failure raises and the script exits non-zero:
    bitwise; static given the scales a dynamic forward used equals that
    forward bitwise (static with the calibrated scales differs from
    dynamic from the second conv on: calibration runs the float forward,
-   as JAX's); replay ms per bucket and mode, CUDA events. Unfused, at
-   each bucket: a torch.profiler trace of the bf16 and the static replay
-   (device ms split into K5, K6 and the rest by kernel name) and of the
-   eager static forward, with ranges around the weight quantize and the
-   K5 calls (the device ms of the per-conv weight quantize and re-layout);
+   as JAX's); replay ms per bucket and mode, CUDA events. Each int8
+   server prepares its 110 (74) weights once before capturing: no capture
+   prepares a weight (asserted). A torch.profiler trace of every replay
+   (device ms split into K5, K6 and the rest by kernel name, kernels per
+   replay); unfused, at each bucket, of the eager static forward with
+   ranges around the weight quantize and re-layout, preparing per call
+   and with the server's list; the static graph runs at least one kernel
+   a conv fewer than the per-call forward (asserted);
 8. card against CPU: the flagship, flag on, one seq-4 request, card f32
    (kernels in a CUDA graph, TF32 off) against CPU f32 (plain versions),
    V/A max abs delta
@@ -172,10 +177,10 @@ failure raises and the script exits non-zero:
    single-device eager forward, the parameters split and the split layers
    a forward, 1 K1, 12 K2, 9 K3 a forward (asserted); bf16 p50 at
    buckets 1 and 8 beside the graphed single-device server's; ``serve
-   --tp 1 --exp-dir`` on cli_train's directory. ``second_card``: K1-K4
+   --tp 1 --exp-dir`` on cli_train's directory. ``second_card``: K1-K6
    on the last card after the first against their plain versions (each
-   kernel raises its shared-memory limit per card); with one card it
-   prints that it was skipped;
+   kernel raises its shared-memory limit per card; K5 and K6 bitwise);
+   with one card it prints that it was skipped;
 14. cli_default_config: config.json's own model (R2D1 + ResNet18, FC
    head, bf16) for one epoch (1 K1, 6 K2 a forward, asserted); one eval
    forward each of NoJR (4 K2) and FeatureConcatFC (no K2), card f32
@@ -202,6 +207,7 @@ before printing any result.
     python3 chip_smoke.py --mel-ab TREE...   # K1 A/B, e.g. parent . . parent
     python3 chip_smoke.py --k4-ab TREE...    # K4 A/B, the same way
     python3 chip_smoke.py --k3-ab TREE...    # K3's Mixed_5c launch A/B
+    python3 chip_smoke.py --int8-ab TREE...  # K5 and K6 at the 77 shapes
 
 time K1 at N = 16 and 128, K4 at its six timed shapes (128 clips, bf16)
 or K3's Mixed_5c launch (avg_tail, 128 clips, bf16), each with CUDA
@@ -209,12 +215,16 @@ events, device-only time and its device operations, for the jmt_tpu_torch
 of each TREE in turn, each in a fresh process (``--mel-times`` /
 ``--k4-times`` / ``--k3-times`` run from that tree), on one card in one
 call: a parent tree unpacked with ``git archive`` into the ignored
-``build/ab/``.
+``build/ab/``. ``--int8-ab`` records the flagship's eligible convs at
+bucket 8 once and times each tree's K5 (as its main path calls it) and
+K6 (dynamic) at each of the 77 shapes by graph replay
+(``--int8-times``), summed per family and per forward.
 
     python3 chip_smoke.py --digests-ab TREE...   # e.g. parent . . parent
 
-runs K1-K4 on seeded inputs (``kernel_runs``: K2 short and long in f32
-and bf16, K3's bf16 launch at Mixed_4b and Mixed_5c, K4 in bf16) with the
+runs K1-K6 on seeded inputs (``kernel_runs``: K2 short and long in f32
+and bf16, K3's bf16 launch at Mixed_4b and Mixed_5c, K4 in bf16, K6 and
+K5 on a Mixed_3b-sized map) with the
 jmt_tpu_torch of each TREE in a fresh process (``--kernel-digests-times``
 from that tree), prints each output's SHA-256 and exits non-zero unless
 every tree gave the same bytes.
@@ -301,6 +311,35 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 10, reps: int = 3) -> float:
+    """Device time of one fn() call: ``iters`` calls captured in a CUDA
+    graph (after a warm-up call on a side stream), the graph replayed
+    ``reps`` times between CUDA events. No host launch cost enters it, as
+    in a served graph."""
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        fn()
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del graph
+    return ms
 
 
 def bound(n_bytes: float, flops: float, peak_flops: float):
@@ -1103,8 +1142,8 @@ def int8_family(c: dict) -> str:
 
 
 def int8_operands(c: dict, gen: torch.Generator):
-    """Random s8 x (K6's layout) and w, a device s_x, s_w at a recorded
-    conv's shapes."""
+    """Random s8 x (in plain channels-last memory) and w, a device s_x, s_w
+    at a recorded conv's shapes."""
     x5 = torch.randint(-127, 128, _as5(c["x"]), generator=gen,
                        dtype=torch.int8, device="cuda")
     x_q = x5.contiguous(memory_format=torch.channels_last_3d).reshape(c["x"])
@@ -1112,6 +1151,34 @@ def int8_operands(c: dict, gen: torch.Generator):
                         device="cuda")
     s_w = torch.rand(c["w"][0], generator=gen, device="cuda") * 1e-2 + 1e-4
     return x_q, w_q, torch.tensor(0.0173, device="cuda"), s_w
+
+
+def k5_call(k5, c: dict, x_q, w_q, s_x, s_w):
+    """K5 at recorded conv ``c`` as the main path calls it, on the
+    jmt_tpu_torch ``k5`` of any tree: x in K6's rows and the weight
+    prepared once, a stem on K6's unfolded x (``Unfold``, built here from
+    x_q), where the tree has them; else (the first design) x in
+    channels-last memory and the weight re-laid per call. Returns the
+    call."""
+    stride, dil, pads = _geom(c)
+    if not hasattr(k5, "prepare_weight"):
+        return lambda **kw: k5.int8_conv(x_q, w_q, s_x, s_w, stride, dil,
+                                         pads, torch.bfloat16, **kw)
+    u = k5.unfold_geometry(c["w"], c["x"], stride, dil, pads)
+    x = k5.as_rows(x_q if u is None else k5.unfold_plain(x_q, u))
+    w = k5.prepare_weight(w_q, s_w, unfold=u is not None)
+    if u is not None:
+        stride, dil, pads = u.stride, u.dilation, u.pads
+    return lambda **kw: k5.int8_conv(x, w, s_x, None, stride, dil, pads,
+                                     torch.bfloat16, **kw)
+
+
+def k6_unfold(k5, c: dict):
+    """The ``Unfold`` K6 applies to conv ``c``'s input on the main path of
+    the tree of ``k5`` (None: none, or a tree without it)."""
+    if not hasattr(k5, "unfold_geometry"):
+        return None
+    return k5.unfold_geometry(c["w"], c["x"], *_geom(c))
 
 
 def _geom(c: dict) -> tuple:
@@ -1122,15 +1189,16 @@ def _geom(c: dict) -> tuple:
 
 def k5_check(c: dict, n: int, gen: torch.Generator) -> dict:
     """K5 at one recorded shape: its s32 sums and bf16 output against the
-    plain version's (float64 conv), bitwise; K5, plain, bound, and as
-    context cuDNN's bf16 conv and (1 x 1, stride 1) torch._int_mm, by CUDA
-    events; ``n`` calls of this shape a forward."""
+    plain version's (float64 conv), bitwise; K5 and as context cuDNN's
+    bf16 conv and (1 x 1, stride 1) torch._int_mm timed by graph replay
+    (``graph_ms``), the plain version by CUDA events, the bound; ``n``
+    calls of this shape a forward."""
     from jmt_tpu_torch.ops.conv import conv_nd
     from jmt_tpu_torch.ops.kernels import int8_conv as k5
     x_q, w_q, s_x, s_w = int8_operands(c, gen)
     stride, dil, pads = _geom(c)
-    y, acc = k5.int8_conv(x_q, w_q, s_x, s_w, stride, dil, pads,
-                          torch.bfloat16, return_acc=True)
+    call = k5_call(k5, c, x_q, w_q, s_x, s_w)
+    y, acc = call(return_acc=True)
     want_acc = k5.int8_acc_plain(x_q, w_q, stride, dil, pads)
     want = k5.dequantize(want_acc, s_x, s_w, torch.bfloat16)
     torch.cuda.synchronize()
@@ -1139,15 +1207,13 @@ def k5_check(c: dict, n: int, gen: torch.Generator) -> dict:
             f"int8_conv kernel {_key(c)}: sums off by "
             f"{(acc.double() - want_acc.double()).abs().max().item()}, "
             f"output by {(y.float() - want.float()).abs().max().item()}")
-    ms = time_ms(lambda: k5.int8_conv(x_q, w_q, s_x, s_w, stride, dil, pads,
-                                      torch.bfloat16), iters=10, warmup=2)
+    ms = graph_ms(call)
     plain_ms = time_ms(lambda: k5.int8_conv_plain(
         x_q, w_q, s_x, s_w, stride, dil, pads, torch.bfloat16),
         iters=1, warmup=1)
     xb = x_q.to(torch.bfloat16)
     wb = w_q.to(torch.bfloat16)
-    cudnn_ms = time_ms(lambda: conv_nd(xb, wb, stride, pads, dil),
-                       iters=10, warmup=2)
+    cudnn_ms = graph_ms(lambda: conv_nd(xb, wb, stride, pads, dil))
     int_mm_ms = None
     m = y.numel() // y.shape[1]
     if (math.prod(c["w"][2:]) == 1 and set(stride) == {1} and m > 16
@@ -1160,7 +1226,7 @@ def k5_check(c: dict, n: int, gen: torch.Generator) -> dict:
                 acc):
             raise AssertionError(f"torch._int_mm against K5's sums at "
                                  f"{_key(c)}")
-        int_mm_ms = time_ms(lambda: torch._int_mm(a, b), iters=10, warmup=2)
+        int_mm_ms = graph_ms(lambda: torch._int_mm(a, b))
     ops = 2.0 * m * c["w"][0] * math.prod(c["w"][1:])
     n_bytes = x_q.numel() + w_q.numel() + 2.0 * y.numel()
     b_ms, b_by = bound(n_bytes, ops, INT8_PEAK_OPS)
@@ -1175,13 +1241,15 @@ def k5_check(c: dict, n: int, gen: torch.Generator) -> dict:
 
 def k6_check(c: dict, n: int, gen: torch.Generator,
              variants: bool) -> dict:
-    """K6 at one recorded conv input: bitwise against its plain version
-    (q and s, dynamic and static) in the recorded dtype and layout, and
-    with ``variants`` also in f32 and in the other layout; timed in the
-    recorded form beside the plain version."""
+    """K6 at one recorded conv input as the main path runs it (a stem's
+    unfolded): bitwise against its plain version (q and s, dynamic and
+    static) in the recorded dtype and layout, and with ``variants`` also
+    in f32 and in the other layout; timed in the recorded form, dynamic
+    and static, beside the plain version."""
     from jmt_tpu_torch.ops.kernels import int8_conv as k5
     nd = len(c["x"]) - 2
     cl = torch.channels_last_3d if nd == 3 else torch.channels_last
+    u = k6_unfold(k5, c)
     base = 3 * torch.randn(c["x"], generator=gen, device="cuda")
     forms = [(c["dtype"], c["channels_last"])]
     if variants:
@@ -1193,8 +1261,8 @@ def k6_check(c: dict, n: int, gen: torch.Generator,
             x = x.contiguous(memory_format=cl if chl else
                              torch.contiguous_format)
         for scale in (None, 0.0251):
-            q, s = k5.quantize_act(x, scale)
-            want_q, want_s = k5.quantize_act_plain(x, scale)
+            q, s = k5.quantize_act(x, scale, u)
+            want_q, want_s = k5.quantize_act_plain(x, scale, u)
             torch.cuda.synchronize()
             same_s = (s == scale if scale is not None
                       else bool(torch.equal(s, want_s)))
@@ -1204,22 +1272,25 @@ def k6_check(c: dict, n: int, gen: torch.Generator,
     x = base.to(c["dtype"])
     if nd >= 2 and c["channels_last"]:
         x = x.contiguous(memory_format=cl)
-    ms = time_ms(lambda: k5.quantize_act(x), iters=10, warmup=2)
+    ms = graph_ms(lambda: k5.quantize_act(x, None, u))
+    static_ms = graph_ms(lambda: k5.quantize_act(x, 0.0251, u))
     plain_ms = time_ms(lambda: k5.quantize_act_plain(x), iters=3, warmup=1)
-    b_ms, b_by = bound(x.numel() * (x.element_size() + 1), 2.0 * x.numel(),
-                       F32_PEAK_FLOPS)
+    # x read once, q (a stem's unfolded) written once
+    q_bytes = x.numel() if u is None else q.numel()
+    b_ms, b_by = bound(x.numel() * x.element_size() + q_bytes,
+                       2.0 * x.numel(), F32_PEAK_FLOPS)
     return {"x": list(c["x"]), "dtype": str(c["dtype"]).split(".")[-1],
+            "unfold": u is not None,
             "channels_last": c["channels_last"], "calls_a_forward": n,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": 0.0}
+            "ms": ms, "static_ms": static_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
 
 
-def check_int8(registers: dict) -> tuple:
-    """K5 and K6 at every distinct eligible conv of the flagship at bucket
-    8 (bf16, inception unfused), recorded in a calibration forward; the
-    records summed over one forward's calls."""
+def flagship_int8_convs() -> tuple:
+    """Every eligible conv of the flagship at bucket 8 (bf16, inception
+    unfused), recorded in a calibration forward: (calls in order, each
+    distinct shape's first call, its calls a forward)."""
     from jmt_tpu_torch.train.loops import _on
-    gen = torch.Generator(device="cuda").manual_seed(3)
     model = make_model(FLAGSHIP_CONFIG, torch.bfloat16,
                        i3d_fused_inception=False).cuda()
     req = dict(zip(REQUEST_KEYS, request(np.random.default_rng(7), 8, 16)))
@@ -1233,6 +1304,15 @@ def check_int8(registers: dict) -> tuple:
     for c in calls:
         counts[_key(c)] = counts.get(_key(c), 0) + 1
         firsts.setdefault(_key(c), c)
+    return calls, firsts, counts
+
+
+def check_int8(registers: dict) -> tuple:
+    """K5 and K6 at every distinct eligible conv of the flagship at bucket
+    8 (bf16, inception unfused), recorded in a calibration forward; the
+    records summed over one forward's calls."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    calls, firsts, counts = flagship_int8_convs()
     k5_rows, k6_rows = [], []
     for i, (key, c) in enumerate(firsts.items()):
         k5_rows.append(k5_check(c, counts[key], gen))
@@ -1265,8 +1345,9 @@ def check_int8(registers: dict) -> tuple:
                             "k5_ms": total(mm, "ms"),
                             "int_mm_ms": total(mm, "int_mm_ms")}})
     timing = ("bucket 8 of the flagship (bf16, inception unfused): every "
-              "eligible conv's shape, random s8 operands, CUDA events, "
-              "summed over one forward's calls")
+              "eligible conv's shape, random s8 operands, each kernel by "
+              "CUDA-graph replay (graph_ms; the plain versions by CUDA "
+              "events), summed over one forward's calls")
     k5_rec = {"name": "int8_conv", "route": "cuda", "source": K5_SOURCE,
               "replaces": "none: jmt_tpu/ops/quant.py:159 is XLA's s8 conv, "
                           "not a Pallas kernel",
@@ -1294,9 +1375,11 @@ def check_int8(registers: dict) -> tuple:
               "dtype": "bfloat16 -> int8", "timing": timing,
               "max_abs_err": 0.0, "calls_a_forward": len(calls),
               "ms": total(k6_rows, "ms"),
+              "static_ms": total(k6_rows, "static_ms"),
               "plain_ms": total(k6_rows, "plain_ms"),
               "bound_ms": total(k6_rows, "bound_ms"), "bound_by": "bytes",
-              "library_ms": None}
+              "library_ms": None,
+              "registers": registers.get("int8_conv")}
     return k5_rec, k6_rec
 
 
@@ -1313,14 +1396,21 @@ def replay_ms(server) -> dict:
 
 def int8_expect(path: str, server, n: int, fused: bool) -> dict:
     """Each bucket's capture holds one forward's launches, K5 and K6
-    ``n`` times in int8; the bucket-8 graph's launches."""
+    ``n`` times in int8, and prepares no weight (the server prepared its
+    ``n`` once, before capturing); the bucket-8 graph's launches."""
     want = dict(INT8_FORWARD[fused], int8_conv=n, quantize_act=n)
+    if len(server.int8_weights) != n:
+        raise AssertionError(f"{path}: {len(server.int8_weights)} prepared "
+                             f"weights, expected {n}")
     for b, graph in server.graphs.items():
         emit({"phase": "capture", "path": path, "bucket": b,
-              "seconds": graph.seconds, **graph.launches})
-        if graph.launches != want:
+              "seconds": graph.seconds,
+              "weight_preparations": graph.weight_preparations,
+              **graph.launches})
+        if graph.launches != want or graph.weight_preparations:
             raise AssertionError(f"{path} bucket {b}: {graph.launches}, "
-                                 f"expected {want}")
+                                 f"{graph.weight_preparations} weights "
+                                 f"prepared, expected {want} and none")
     return server.graphs[8].launches
 
 
@@ -1334,8 +1424,8 @@ def dynamic_forward_scales(model, arrays) -> tuple:
     from jmt_tpu_torch.train.loops import eval_forward
     used, original = [], kernels._launch_quantize
 
-    def spy(x, scale):
-        q, s_x = original(x, scale)
+    def spy(x, scale, unfold=None):
+        q, s_x = original(x, scale, unfold)
         used.append(s_x)
         return q, s_x
 
@@ -1347,8 +1437,9 @@ def dynamic_forward_scales(model, arrays) -> tuple:
     return out, used
 
 
-K5_KERNELS = ("int8_conv_kernel",)
-K6_KERNELS = ("absmax_kernel", "quantize_kernel", "quantize_nc_kernel")
+K5_KERNELS = ("int8_conv_sm90", "int8_conv_dequant")
+K6_KERNELS = ("absmax_kernel", "quantize_cl_kernel", "quantize_nc_kernel",
+              "unfold_kernel", "quantize_rows_kernel")
 
 
 def _int8_group(name: str) -> str:
@@ -1360,21 +1451,20 @@ def _int8_group(name: str) -> str:
 
 
 def profile_int8_eager(path: str, model, arrays, scales,
-                       reps: int = 3) -> None:
-    """The eager static int8 forward under torch.profiler, with ranges
-    around each conv's weight quantize (``quant.quantize_weight_per_
-    channel``) and each K5 launch (its weight re-layout, then K5): the
-    device ms a forward spends in each, beside K5's and K6's kernels by
-    name. A graph replay runs the same kernels. A range's device time is
-    that of the torch kernels launched inside it: K5's launch through
-    ctypes belongs to no torch op, so the K5 range holds the re-layout
-    alone."""
+                       weights=None, reps: int = 3) -> dict:
+    """The eager static int8 forward under torch.profiler, its weights
+    quantized per call (``weights`` None) or taken from the server's
+    prepared list, with ranges around each conv's weight quantize
+    (``quant.quantize_weight_per_channel``) and re-layout
+    (``kernels.relayout``): the device ms and kernels a forward spends in
+    each, beside K5's and K6's kernels by name and the forward's kernels
+    in all. A graph replay runs the same kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from jmt_tpu_torch.ops import quant
     from jmt_tpu_torch.ops.kernels import int8_conv as kernels
     from jmt_tpu_torch.train.loops import eval_forward
-    originals = (quant.quantize_weight_per_channel, kernels._launch_conv)
+    originals = (quant.quantize_weight_per_channel, kernels.relayout)
 
     def ranged(name, fn):
         def wrapper(*args, **kw):
@@ -1382,42 +1472,47 @@ def profile_int8_eager(path: str, model, arrays, scales,
                 return fn(*args, **kw)
         return wrapper
 
-    eval_forward(model, arrays, "static", scales)
+    eval_forward(model, arrays, "static", scales, weights)
     torch.cuda.synchronize()
     quant.quantize_weight_per_channel = ranged("int8.weight_quantize",
                                                originals[0])
-    kernels._launch_conv = ranged("int8.k5_call", originals[1])
+    kernels.relayout = ranged("int8.weight_relayout", originals[1])
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                eval_forward(model, arrays, "static", scales)
+                eval_forward(model, arrays, "static", scales, weights)
             torch.cuda.synchronize()
     finally:
-        quant.quantize_weight_per_channel, kernels._launch_conv = originals
-    ranges = {"int8.weight_quantize": 0.0, "int8.k5_call": 0.0}
+        quant.quantize_weight_per_channel, kernels.relayout = originals
+    ranges = {"int8.weight_quantize": 0.0, "int8.weight_relayout": 0.0}
     calls = dict.fromkeys(ranges, 0)
     for ev in prof.events():
         if ev.device_type == DeviceType.CPU and ev.name in ranges:
             ranges[ev.name] += ev.device_time_total / reps / 1e3
             calls[ev.name] += 1
     kernels_ms = {"int8_conv": 0.0, "quantize_act": 0.0, "other": 0.0}
+    count = 0.0
     for ev in prof.key_averages():
         # the ranges also stand on the device's timeline: not kernels
         if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total
                 and ev.key not in ranges):
             kernels_ms[_int8_group(ev.key)] += (ev.self_device_time_total
                                                 / reps / 1e3)
-    wq = ranges["int8.weight_quantize"]
-    emit({"phase": "profile_int8_eager", "path": path,
-          "batch": int(arrays["clips"].shape[0]),
-          "device_ms_per_forward": sum(kernels_ms.values()),
-          "k5_ms": kernels_ms["int8_conv"],
-          "k6_ms": kernels_ms["quantize_act"],
-          "weight_quantize_ms": wq,
-          "weight_relayout_ms": ranges["int8.k5_call"],
-          "range_calls_per_forward": {k: v / reps
-                                      for k, v in calls.items()}})
+            count += ev.count / reps
+    rec = {"phase": "profile_int8_eager", "path": path,
+           "weights": "per call" if weights is None else "prepared",
+           "batch": int(arrays["clips"].shape[0]),
+           "device_ms_per_forward": sum(kernels_ms.values()),
+           "kernels_per_forward": count,
+           "k5_ms": kernels_ms["int8_conv"],
+           "k6_ms": kernels_ms["quantize_act"],
+           "weight_quantize_ms": ranges["int8.weight_quantize"],
+           "weight_relayout_ms": ranges["int8.weight_relayout"],
+           "range_calls_per_forward": {k: v / reps
+                                       for k, v in calls.items()}}
+    emit(rec)
+    return rec
 
 
 def phase_int8(rng) -> dict:
@@ -1453,6 +1548,8 @@ def phase_int8(rng) -> dict:
         int8_expect(path + "_dynamic", server, n, fused)
         dyn = {b: server.predict(*reqs[b]) for b in reqs}
         times["dynamic"] = replay_ms(server)
+        for b in reqs:
+            profile_replay(path + "_dynamic", server, b)
         arrays = {b: _on(dict(zip(REQUEST_KEYS, reqs[b])),
                          torch.device("cuda")) for b in reqs}
         eager_dyn = eval_forward(model, arrays[8], True)
@@ -1468,11 +1565,30 @@ def phase_int8(rng) -> dict:
         stat = {b: server.predict(*reqs[b]) for b in reqs}
         times["static"] = replay_ms(server)
         eager_stat = eval_forward(model, arrays[8], "static", scales)
-        if not fused:
-            for b in reqs:
-                profile_replay(path + "_static", server, b)
-                profile_int8_eager(path + "_static", model, arrays[b],
-                                   scales)
+        for b in reqs:
+            replay = profile_replay(path + "_static", server, b)
+            if fused:
+                continue
+            # the graph holds no weight quantize or re-layout: the eager
+            # forward that prepares per call runs at least one more kernel
+            # a conv, and with the server's list none of them
+            per_call = profile_int8_eager(path + "_static", model,
+                                          arrays[b], scales)
+            prepared = profile_int8_eager(path + "_static", model,
+                                          arrays[b], scales,
+                                          server.int8_weights)
+            emit({"phase": "int8_graph_kernels", "path": path, "batch": b,
+                  "static_replay": replay["kernels_per_replay"],
+                  "eager_per_call": per_call["kernels_per_forward"],
+                  "eager_prepared": prepared["kernels_per_forward"]})
+            if (per_call["kernels_per_forward"]
+                    < replay["kernels_per_replay"] + n
+                    or any(prepared["range_calls_per_forward"].values())):
+                raise AssertionError(f"{path} bucket {b}: the static graph "
+                                     f"runs {replay['kernels_per_replay']} "
+                                     f"kernels, the eager forward "
+                                     f"{per_call['kernels_per_forward']} "
+                                     f"preparing its {n} weights per call")
         if main is None:
             main = dict(server.graphs[8].launches)
         rec = {"phase": "int8_server", "path": path, "scales": len(scales),
@@ -1590,7 +1706,7 @@ def profile_forward(path: str, server, req, reps: int = 3) -> None:
                   for r in rows[:25]]})
 
 
-def profile_replay(path: str, server, b: int, reps: int = 3) -> None:
+def profile_replay(path: str, server, b: int, reps: int = 3) -> dict:
     """One bucket's graph replayed ``reps`` times under torch.profiler:
     device ms, idle share and kernels per replay, and their split into
     K5, K6 and the rest by kernel name."""
@@ -1614,11 +1730,13 @@ def profile_replay(path: str, server, b: int, reps: int = 3) -> None:
             g["ms"] += ev.self_device_time_total / reps / 1e3
             g["kernels"] += ev.count / reps
     busy = sum(g["ms"] for g in groups.values())
-    emit({"phase": "profile_replay", "path": path, "batch": b,
-          "wall_ms_per_replay": wall_ms, "device_ms_per_replay": busy,
-          "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
-          "kernels_per_replay": sum(g["kernels"] for g in groups.values()),
-          "groups": groups})
+    rec = {"phase": "profile_replay", "path": path, "batch": b,
+           "wall_ms_per_replay": wall_ms, "device_ms_per_replay": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+           "kernels_per_replay": sum(g["kernels"] for g in groups.values()),
+           "groups": groups}
+    emit(rec)
+    return rec
 
 
 def phase_card_vs_cpu() -> None:
@@ -3314,13 +3432,70 @@ def k3_times() -> None:
           "device_ms": sum(ms for _, ms in ops), "device_ops": ops})
 
 
-def tree_times(tree: str, mode: str) -> list:
+def int8_times(shapes: str) -> None:
+    """``--int8-times SHAPES``: K5 and K6 (dynamic) of the jmt_tpu_torch in
+    the working directory at each conv shape of the JSON file SHAPES
+    (``int8_ab``), by graph replay, one line each; K5 as the main path of
+    that tree calls it (``k5_call``)."""
+    sys.path.insert(0, os.getcwd())
+    import jmt_tpu_torch
+    from jmt_tpu_torch.ops.kernels import int8_conv as k5
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with open(shapes) as f:
+        rows = json.load(f)
+    for c in rows:
+        c = dict(c, dtype=getattr(torch, c["dtype"]),
+                 **{k: tuple(c[k]) for k in ("x", "w", "stride",
+                                              "dilation")},
+                 pads=tuple(tuple(p) for p in c["pads"]))
+        call = k5_call(k5, c, *int8_operands(c, gen))
+        x = (3 * torch.randn(c["x"], generator=gen, device="cuda")).to(
+            c["dtype"])
+        if len(c["x"]) == 5 and c["channels_last"]:
+            x = x.contiguous(memory_format=torch.channels_last_3d)
+        u = k6_unfold(k5, c)
+        k6 = ((lambda: k5.quantize_act(x)) if u is None
+              else (lambda: k5.quantize_act(x, None, u)))
+        emit({"family": int8_family(c), "x": list(c["x"]),
+              "w": list(c["w"]), "calls_a_forward": c["calls"],
+              "package": os.path.dirname(jmt_tpu_torch.__file__),
+              "k5_ms": graph_ms(call), "k6_ms": graph_ms(k6)})
+        torch.cuda.empty_cache()
+
+
+def int8_ab(trees) -> None:
+    """``--int8-ab TREE...``: K5 and K6 of each tree (parent, change,
+    change, parent) at the flagship's 77 bucket-8 conv shapes, each tree in
+    a fresh process (``--int8-times``); per family and in all, ms a
+    forward."""
+    _, firsts, counts = flagship_int8_convs()
+    shapes = os.path.abspath(os.path.join("build", "int8_ab_shapes.json"))
+    os.makedirs(os.path.dirname(shapes), exist_ok=True)
+    with open(shapes, "w") as f:
+        json.dump([dict(c, dtype=str(c["dtype"]).split(".")[-1],
+                        calls=counts[key]) for key, c in firsts.items()], f)
+    families, k5_total, k6_total = {}, [], []
+    for i, tree in enumerate(trees):
+        k5_total.append(0.0)
+        k6_total.append(0.0)
+        for rec in tree_times(tree, "int8", [shapes]):
+            emit({"phase": "int8_ab", "tree": tree, **rec})
+            fam = families.setdefault(rec["family"], [0.0] * len(trees))
+            fam[i] += rec["k5_ms"] * rec["calls_a_forward"]
+            k5_total[i] += rec["k5_ms"] * rec["calls_a_forward"]
+            k6_total[i] += rec["k6_ms"] * rec["calls_a_forward"]
+    emit({"phase": "int8_ab_families", "trees": list(trees),
+          "k5_ms_by_family": families, "k5_ms": k5_total,
+          "k6_ms": k6_total})
+
+
+def tree_times(tree: str, mode: str, args=()) -> list:
     """The records of ``--mel-times`` / ``--k4-times`` / ``--k3-times`` /
-    ``--kernel-digests-times`` run in a fresh process from ``tree``, on
-    that tree's jmt_tpu_torch."""
+    ``--int8-times`` / ``--kernel-digests-times`` run in a fresh process
+    from ``tree``, on that tree's jmt_tpu_torch."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           f"--{mode}-times"], cwd=tree, capture_output=True,
-                          text=True, timeout=900)
+                           f"--{mode}-times", *args], cwd=tree,
+                          capture_output=True, text=True, timeout=900)
     if proc.returncode:
         raise RuntimeError(f"--{mode}-times in {tree} failed:\n"
                            f"{proc.stdout}\n{proc.stderr}")
@@ -3757,17 +3932,19 @@ def phase_tp_server(exp: str) -> None:
 
 @torch.no_grad()
 def kernel_runs(dev: torch.device) -> dict:
-    """K1-K4 launched on ``dev`` from seeded inputs, each beside its plain
+    """K1-K6 launched on ``dev`` from seeded inputs, each beside its plain
     version there: ``{name: (kernel output, plain output)}``. K1 at N = 16
     (f32), K2 on a short and a long problem in f32 and bf16, K3 at
     Mixed_4b and Mixed_5c (its avg_tail) in bf16 (the sm_90 pipeline), K4
-    at (16, 8, 14, 14, 512) to 64 in bf16."""
+    at (16, 8, 14, 14, 512) to 64 in bf16, K6 (dynamic) on a bf16
+    (16, 96, 8, 28, 28) map and K5 on its output."""
     from jmt_tpu_torch.models.common import init_parameters
     from jmt_tpu_torch.models.i3d import InceptionModule
     from jmt_tpu_torch.ops import mel
     from jmt_tpu_torch.ops.inception import (fold_inception_weights,
                                              inception_plain)
     from jmt_tpu_torch.ops.kernels import fused_attention as fa
+    from jmt_tpu_torch.ops.kernels import int8_conv as k5
     from jmt_tpu_torch.ops.kernels import melspec
     from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
     from jmt_tpu_torch.ops.kernels.pool1x1 import pool3_1x1
@@ -3805,18 +3982,33 @@ def kernel_runs(dev: torch.device) -> dict:
         kk = (0.05 * torch.randn(512, 64, generator=gen)).to(
             torch.bfloat16).to(dev)
         runs["pool3_1x1"] = (pool3_1x1(x, kk), pool3_1x1_plain(x, kk))
+        # K6 then K5 on its output, as an eligible conv runs them (Mixed_3b's
+        # b1b: 96 -> 128, 3 x 3 x 3), through the API every tree has
+        x = torch.randn(16, 96, 8, 28, 28, generator=gen).to(
+            torch.bfloat16).to(dev).contiguous(
+                memory_format=torch.channels_last_3d)
+        w_q = torch.randint(-127, 128, (128, 96, 3, 3, 3), generator=gen,
+                            dtype=torch.int8).to(dev)
+        s_w = (torch.rand(128, generator=gen) * 1e-2 + 1e-4).to(dev)
+        q, s_x = k5.quantize_act(x)
+        runs["quantize_act"] = (q, k5.quantize_act_plain(x)[0])
+        pads = ((1, 1),) * 3
+        runs["int8_conv"] = (
+            k5.int8_conv(q, w_q, s_x, s_w, 1, 1, pads, torch.bfloat16),
+            k5.int8_conv_plain(q, w_q, s_x, s_w, 1, 1, pads, torch.bfloat16))
         torch.cuda.synchronize(dev)
     return runs
 
 
-# K1-K4 against their plain versions on another card: K1 absolute, the
-# others relative to max |plain| (K2 absolute: |out| < 1)
+# K1-K6 against their plain versions on another card: K1 absolute, K3 and
+# K4 relative to max |plain| (K2 absolute: |out| < 1); K5 and K6 bitwise
 SECOND_CARD_TOL = {"log_mel": 5e-5, "fused_attention": 1e-2,
-                   "inception_module_fused": 1e-2, "pool3_1x1": 1e-2}
+                   "inception_module_fused": 1e-2, "pool3_1x1": 1e-2,
+                   "int8_conv": 0.0, "quantize_act": 0.0}
 
 
 def kernels_on(dev: torch.device) -> dict:
-    """The largest error of each of K1-K4 on ``dev`` against its plain
+    """The largest error of each of K1-K6 on ``dev`` against its plain
     version (``kernel_runs``), by kernel."""
     errs = dict.fromkeys(SECOND_CARD_TOL, 0.0)
     for name, (got, want) in kernel_runs(dev).items():
@@ -3858,14 +4050,14 @@ def digests_ab(trees) -> None:
 
 
 def phase_second_card() -> None:
-    """K1-K4 on the last visible card after the first (their
+    """K1-K6 on the last visible card after the first (their
     shared-memory limits are raised per card): against their plain
     versions. With one card there is no second card, and the phase says
     that it was skipped."""
     n = torch.cuda.device_count()
     if n < 2:
         emit({"phase": "second_card", "skipped": f"{n} card visible: no "
-              f"second card to launch K1-K4 on; not checked"})
+              f"second card to launch K1-K6 on; not checked"})
         return
     dev = torch.device("cuda", n - 1)
     errs = kernels_on(dev)
@@ -3882,6 +4074,13 @@ def main() -> int:
              "--k3-times": k3_times, "--kernel-digests-times": kernel_digests}
     if sys.argv[1:2] and sys.argv[1] in times:
         times[sys.argv[1]]()
+        return 0
+    if sys.argv[1:2] == ["--int8-times"]:
+        int8_times(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--int8-ab"]:
+        print(nvidia_smi())
+        int8_ab(sys.argv[2:])
         return 0
     if sys.argv[1:2] == ["--digests-ab"]:
         digests_ab(sys.argv[2:])

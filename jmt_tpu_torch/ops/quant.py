@@ -26,7 +26,14 @@ mode its scales, into the graph.
   were left over (a persisted scale list of another configuration);
 * ``int8_calibration(collector)``: each eligible conv appends its max |x|
   (a 0-d f32 tensor on x's device) and computes in its own dtype; feed
-  them to ``act_scales_from_maxes``.
+  them to ``act_scales_from_maxes``;
+* prepared weights: ``int8_inference(..., weights=...)`` takes each
+  eligible conv's quantized, re-laid weight (``kernels.Int8Weight``) from
+  a list in execution order instead of preparing it per call (the same
+  bits), and raises, as the scales do, when the list runs out or is left
+  over. ``collect_int8_weights(forward)`` makes the list by one eager int8
+  forward. The list is a snapshot: it does not follow an in-place update
+  of the weights (``serve.InferenceServer`` refuses to replay after one).
 
 The s8 product and the activation quantizer are kernels K5 and K6
 (``ops/kernels/int8_conv.py``). Training is never quantized: the kernels
@@ -37,7 +44,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,14 +68,20 @@ def quant_enabled() -> bool:
 
 @contextlib.contextmanager
 def int8_inference(enabled: bool = True,
-                   act_scales: Optional[Sequence[float]] = None):
+                   act_scales: Optional[Sequence[float]] = None,
+                   weights: Optional[Sequence] = None):
     """One forward with eligible convs in int8: dynamic activation scales,
-    or static ones (``act_scales``, execution order)."""
-    saved = tuple(getattr(_STATE, k, None) for k in ("int8", "scales", "pos"))
+    or static ones (``act_scales``, execution order); each weight prepared
+    per call, or taken from ``weights`` (``collect_int8_weights``,
+    execution order)."""
+    keys = ("int8", "scales", "pos", "weights", "wpos")
+    saved = tuple(getattr(_STATE, k, None) for k in keys)
     _STATE.int8 = bool(enabled)
     _STATE.scales = ([float(s) for s in act_scales]
                      if enabled and act_scales is not None else None)
-    _STATE.pos = 0
+    _STATE.weights = (list(weights) if enabled and weights is not None
+                      else None)
+    _STATE.pos = _STATE.wpos = 0
     try:
         yield
         scales, pos = _STATE.scales, _STATE.pos
@@ -76,8 +89,29 @@ def int8_inference(enabled: bool = True,
             raise RuntimeError(
                 f"int8 act_scales left over: the forward ran {pos} eligible "
                 f"convs but {len(scales)} scales were given — {_REMEDY}")
+        prepared, wpos = _STATE.weights, _STATE.wpos
+        if prepared is not None and wpos != len(prepared):
+            raise RuntimeError(
+                f"int8 prepared weights left over: the forward ran {wpos} "
+                f"eligible convs but {len(prepared)} weights were prepared "
+                f"— {_REMEDY}")
     finally:
-        _STATE.int8, _STATE.scales, _STATE.pos = saved
+        for k, v in zip(keys, saved):
+            setattr(_STATE, k, v)
+
+
+def collect_int8_weights(forward: Callable[[], object]) -> list:
+    """The prepared weights of one eager int8 forward (``forward()`` runs
+    it under ``int8_inference``): each eligible conv appends the
+    ``kernels.Int8Weight`` it prepares, in execution order, the list to
+    pass as ``int8_inference(weights=...)``."""
+    saved = getattr(_STATE, "wcoll", None)
+    _STATE.wcoll = coll = []
+    try:
+        forward()
+    finally:
+        _STATE.wcoll = saved
+    return coll
 
 
 @contextlib.contextmanager
@@ -151,13 +185,44 @@ def _next_scale() -> Optional[float]:
     return scales[_STATE.pos - 1]
 
 
+def _prepared_weight(weight: torch.Tensor):
+    """The conv's ``kernels.Int8Weight``: the next of the prepared list,
+    or quantized and laid out now (and collected, under
+    ``collect_int8_weights``)."""
+    from jmt_tpu_torch.ops.kernels import int8_conv as kernels
+    prepared = getattr(_STATE, "weights", None)
+    if prepared is None:
+        # on the card K5 runs a stem on K6's unfolded x (kernels.Unfold)
+        w = kernels.prepare_weight(
+            *quantize_weight_per_channel(weight),
+            unfold=weight.is_cuda and kernels.unfolds(weight.shape))
+        coll = getattr(_STATE, "wcoll", None)
+        if coll is not None:
+            coll.append(w)
+        return w
+    pos = _STATE.wpos
+    if pos >= len(prepared):
+        raise RuntimeError(
+            "int8 prepared weights exhausted: the model runs more eligible "
+            f"convs than were prepared — {_REMEDY}")
+    w = prepared[pos]
+    if w.shape != tuple(weight.shape) or w.wmat.device != weight.device:
+        raise RuntimeError(
+            f"int8 prepared weight {pos} is {w.shape} on {w.wmat.device}, "
+            f"the conv's {tuple(weight.shape)} on {weight.device} — "
+            f"{_REMEDY}")
+    _STATE.wpos = pos + 1
+    return w
+
+
 def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride, pads,
               dilation, float_conv) -> torch.Tensor:
     """An eligible conv under a context: x (N, I, *spatial), weight
     (O, I, *k), both in the compute dtype; pads ((lo, hi), ...) per
     spatial dim. Calibration records max |x| and returns
-    ``float_conv()``; inference quantizes x (K6) and the weight, runs the
-    s8 product (K5) and returns x's dtype."""
+    ``float_conv()``; inference quantizes x (K6), takes the prepared
+    weight (or quantizes and lays it out), runs the s8 product (K5) and
+    returns x's dtype."""
     from jmt_tpu_torch.ops.kernels import int8_conv as kernels
     coll = getattr(_STATE, "calib", None)
     if coll is not None:
@@ -168,7 +233,13 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride, pads,
             "int8 inference has no backward: run it under "
             "torch.inference_mode() or torch.no_grad(); training is never "
             "quantized")
-    w_q, s_w = quantize_weight_per_channel(weight)
-    x_q, s_x = kernels.quantize_act(x, _next_scale())
-    return kernels.int8_conv(x_q, w_q, s_x, s_w, stride, dilation, pads,
+    w = _prepared_weight(weight)
+    if not w.unfold:
+        x_q, s_x = kernels.quantize_act(x, _next_scale())
+        return kernels.int8_conv(x_q, w, s_x, None, stride, dilation, pads,
+                                 x.dtype)
+    # a stem on the card: K6 unfolds x for K5 (kernels.Unfold)
+    u = kernels.unfold_geometry(w.shape, x.shape, stride, dilation, pads)
+    x_q, s_x = kernels.quantize_act(x, _next_scale(), u)
+    return kernels.int8_conv(x_q, w, s_x, None, u.stride, u.dilation, u.pads,
                              x.dtype)

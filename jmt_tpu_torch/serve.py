@@ -29,8 +29,12 @@ under ``torch.inference_mode()``.
 * **int8** (``int8=True``: dynamic activation scales; ``"static"`` with
   ``int8_scales``): eligible backbone convs run the s8 kernels
   (``ops/quant.py``); each graph is captured under the mode, so a static
-  graph bakes its scales in. ``calibrate`` measures static scales on a
-  request and captures the graphs again.
+  graph bakes its scales in. Before each capture one eager forward
+  prepares every eligible weight once (quantized and laid out for K5:
+  ``quant.collect_int8_weights``), so no graph quantizes a weight; the
+  prepared weights are a snapshot, and ``predict`` raises if a parameter
+  or buffer changed in place since (its ``_version``). ``calibrate``
+  measures static scales on a request and captures the graphs again.
 * **Tensor parallelism** (``model_mesh``, ``parallel/tp.py``): the
   output channels of the large conv and dense layers split over a list of
   devices (one card may appear more than once), the rest on the lead
@@ -146,10 +150,13 @@ class WavLMFrontend:
 class BucketGraph:
     """One bucket's CUDA graph: its static input buffers, the captured
     eval forward and its static outputs. ``seconds``: warm-up and
-    capture; ``launches``: each kernel's launches inside the capture."""
+    capture; ``launches``: each kernel's launches inside the capture;
+    ``weight_preparations``: int8 weights quantized and laid out inside
+    it (0 when the server prepared them)."""
 
     def __init__(self, server: "InferenceServer", b: int):
         from jmt_tpu_torch.ops.kernels import launch_counts
+        from jmt_tpu_torch.ops.kernels.int8_conv import prepare_weight
         t0 = time.perf_counter()
         dev = server.device
         with torch.cuda.device(dev):
@@ -162,9 +169,11 @@ class BucketGraph:
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             before = launch_counts()
+            prepared = prepare_weight.calls
             with torch.cuda.graph(self.graph):
                 self.outputs = server.forward(self.inputs)
             after = launch_counts()
+            self.weight_preparations = prepare_weight.calls - prepared
             torch.cuda.synchronize(dev)
         self.launches = {k: after[k] - before[k] for k in after}
         self.seconds = time.perf_counter() - t0
@@ -225,18 +234,31 @@ class InferenceServer:
         self._capture()
 
     def _capture(self) -> None:
-        """One graph per bucket on the card, under the server's int8 mode
-        (the previous graphs released first); none for a TP server."""
+        """In int8, the prepared weights (one eager forward of the smallest
+        bucket); then one graph per bucket on the card, under the server's
+        int8 mode (the previous graphs released first); none for a TP
+        server."""
         self.graphs: Dict[int, BucketGraph] = {}
+        self.int8_weights = None
+        if self.int8:
+            example = self._example(self.buckets[0])
+            self.int8_weights = quant.collect_int8_weights(
+                lambda: self.forward(example))
+        self._versions_at = self._versions()
         if self.device.type == "cuda" and self.model_mesh is None:
             for b in self.buckets:
                 self.graphs[b] = BucketGraph(self, b)
         self._captured_at = self._addresses()
 
     # ------------------------------------------------------------------
+    def _tensors(self):
+        return itertools.chain(self.model.parameters(), self.model.buffers())
+
     def _addresses(self) -> List[int]:
-        return [t.data_ptr() for t in itertools.chain(
-            self.model.parameters(), self.model.buffers())]
+        return [t.data_ptr() for t in self._tensors()]
+
+    def _versions(self) -> List[int]:
+        return [t._version for t in self._tensors()]
 
     def _example(self, b: int) -> Dict[str, torch.Tensor]:
         """Zero inputs of bucket ``b`` on the device."""
@@ -256,7 +278,7 @@ class InferenceServer:
         with tp.tensor_parallel(self.model_mesh):
             return eval_forward(self.model, arrays, self.int8,
                                 self.int8_scales if self.int8 == "static"
-                                else None)
+                                else None, self.int8_weights)
 
     def calibrate(self, clips: np.ndarray, audio: np.ndarray,
                   wavlm: Optional[np.ndarray] = None) -> List[float]:
@@ -320,6 +342,12 @@ class InferenceServer:
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Bucket ``b``'s forward of what ``_stage`` returned: its graph's
         replay on the card, the eager forward on the CPU."""
+        if self.int8_weights is not None and \
+                self._versions() != self._versions_at:
+            raise RuntimeError(
+                "the model's parameters or buffers changed in place after "
+                "its int8 weights were prepared; the prepared weights would "
+                "be stale: build a new InferenceServer")
         graph = self.graphs.get(b)
         if graph is None:
             return self.forward(arrays)

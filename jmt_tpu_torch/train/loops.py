@@ -249,16 +249,18 @@ def make_train_step(model, more_vision_augm: bool = False,
 
 
 def eval_forward(model, arrays: Dict[str, torch.Tensor], int8=False,
-                 act_scales=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 act_scales=None, int8_weights=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The eval forward of arrays already on the model's device: eval mode
     (running-statistics BN, no dropout), no augmentation,
     ``torch.inference_mode``. The eval step's and the server's. ``int8``:
     eligible backbone convs in int8 (``ops/quant.int8_inference``),
-    static with ``act_scales``."""
+    static with ``act_scales``, their weights prepared per call or taken
+    from ``int8_weights`` (``quant.collect_int8_weights``)."""
     if model.training:  # a train step left it in train mode
         model.eval()
     with torch.inference_mode(), quant.int8_inference(
-            bool(int8), act_scales=act_scales):
+            bool(int8), act_scales=act_scales, weights=int8_weights):
         spec, clips = preprocess(model, arrays)
         return model(spec, clips, arrays.get("wavlm"))
 

@@ -1534,8 +1534,21 @@ def test_quantize_act_kernel_matches_plain_on_card(dtype, layout,
             assert s.item() == 1.0
         else:
             assert s == scale
-    q3 = q.reshape(q.shape[:2] + (1,) * (5 - q.ndim) + q.shape[2:])
-    assert q3.is_contiguous(memory_format=torch.channels_last_3d)
+    _assert_k6_rows(q, k5)
+
+
+def _assert_k6_rows(q, k5):
+    """q lies in channels-last rows of ``channel_pitch(C)`` bytes (K6's
+    layout, which K5 reads as it is) and the pad channels are zero."""
+    q3 = q
+    while q3.ndim < 5:
+        q3 = q3.unsqueeze(2)
+    n, c, t, h, w = q3.shape
+    cp = k5.channel_pitch(c)
+    assert k5._row_pitch(q3) == cp and k5.as_rows(q) is q
+    full = torch.as_strided(q3, (n, cp, t, h, w),
+                            (t * h * w * cp, 1, h * w * cp, w * cp, cp))
+    assert not full[:, c:].any()
 
 
 @pytest.mark.cuda
@@ -1594,3 +1607,215 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda_device):
         k5.quantize_act(torch.ones(2, 3, 4, 4, 4, 4, device=cuda_device))
     with pytest.raises(ValueError):
         k5.quantize_act(torch.ones(2, 3, 4, device=cuda_device), -1.0)
+
+
+# ragged K5 shapes: (x shape, weight shape, stride, pads, dilation). Cin and
+# Co of R(2+1)D's mid-planes (45, 230, 460, 921: the K per tap padded), M
+# not a multiple of the tile, K not a multiple of 128, the wide tiling
+# (Co > 256, two column tiles for 921), split-K (few rows, long K), narrow
+# column tiles (few rows, short K), 256-row tiles (Co <= 128, many rows),
+# Cin 3 and 6 (padded to 16; a stem called directly, not unfolded),
+# dilation and asymmetric pads
+INT8_RAGGED = {
+    "cin45_co230_t_stride2": ((3, 45, 3, 7, 9), (230, 45, 3, 1, 1),
+                              (2, 1, 1), ((1, 1), (0, 0), (0, 0)), 1),
+    "cin230_co460_split": ((2, 230, 2, 6, 5), (460, 230, 1, 3, 3),
+                           (1, 2, 2), ((0, 0), (1, 1), (1, 1)), 1),
+    "cin460_co921_split": ((1, 460, 2, 4, 4), (921, 460, 3, 1, 1), 1,
+                           ((1, 1), (0, 0), (0, 0)), 1),
+    "cin921_co45_split": ((2, 921, 1, 5, 6), (45, 921, 1, 1, 1), 1, None, 1),
+    "dilated_asym_pads": ((2, 32, 5, 9, 11), (40, 32, 3, 3, 3), 1,
+                          ((2, 0), (1, 3), (0, 2)), (1, 2, 2)),
+    "m_ragged_1x1": ((4, 64, 4, 20, 21), (96, 64, 1, 1, 1), 1, None, 1),
+    "stem_cin3_direct": ((2, 3, 6, 20, 22), (45, 3, 1, 7, 7), (1, 2, 2),
+                         ((0, 0), (3, 3), (3, 3)), 1),
+    "cin6": ((2, 6, 4, 9, 9), (20, 6, 3, 3, 3), 1,
+             ((1, 1), (1, 1), (1, 1)), 1),
+    "narrow_columns_1x1_s2": ((8, 128, 4, 9, 9), (256, 128, 1, 1, 1),
+                              (1, 2, 2), None, 1),
+    "rows256_co64_3x3x3": ((4, 64, 4, 48, 48), (64, 64, 3, 3, 3), 1,
+                           ((1, 1), (1, 1), (1, 1)), 1),
+    "rows256_ragged_co96_1x1": ((3, 48, 5, 47, 49), (96, 48, 1, 1, 1), 1,
+                                None, 1),
+    "tcn_long_k_split": ((3, 512, 13), (512, 512, 5), 1, ((8, 0),), 2),
+    "resnet_cin24_s2": ((2, 24, 15, 11), (72, 24, 3, 3), 2,
+                        ((1, 1), (1, 1)), 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(INT8_RAGGED))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_int8_conv_kernel_ragged_shapes_on_card(name, dtype, cuda_device):
+    """K5's s32 sums and output bitwise the plain version's at ragged
+    shapes, dynamic and static, with a prepared weight on x in K6's rows
+    (``as_rows``) and with a raw weight on x in plain channels-last
+    memory (copied into the rows)."""
+    from jmt_tpu_torch.ops.kernels import int8_conv as k5
+    xs, ws, stride, pads, dil = INT8_RAGGED[name]
+    gen = torch.Generator().manual_seed(11)
+    x_q = torch.randint(-127, 128, xs, generator=gen, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, ws, generator=gen,
+                        dtype=torch.int8).to(cuda_device)
+    s_w = (torch.rand(ws[0], generator=gen) * 1e-2 + 1e-4).to(cuda_device)
+    x_cl = x_q.to(cuda_device).contiguous(
+        memory_format=torch.channels_last_3d if len(xs) == 5
+        else torch.channels_last if len(xs) == 4
+        else torch.contiguous_format)
+    if len(xs) == 3:
+        x_cl = x_q.to(cuda_device).transpose(1, 2).contiguous().transpose(
+            1, 2)
+    prepared = k5.prepare_weight(w_q, s_w)
+    want_acc = k5.int8_acc_plain(x_cl, w_q, stride, dil, pads)
+    for sx in (torch.tensor(0.013, device=cuda_device), 0.013):
+        want = k5.dequantize(want_acc, sx, s_w, dtype)
+        for x, w, s in ((k5.as_rows(x_cl), prepared, None),
+                        (x_cl, w_q, s_w)):
+            y, acc = k5.int8_conv(x, w, sx, s, stride, dil, pads, dtype,
+                                  return_acc=True)
+            y2 = k5.int8_conv(x, w, sx, s, stride, dil, pads, dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(acc, want_acc)
+            assert y.dtype == dtype and torch.equal(y, want)
+            assert torch.equal(y2, want)
+
+
+def _k6_input(path, dtype, device, seed=3, nan=False):
+    """x for one of K6's read paths: channels-last rows with C a multiple
+    of 16 (the 16-element path) or not (element by element), contiguous
+    (n, c, sp) with the spatial rows 16-byte aligned or not (the tiles),
+    with C < 16 (the tiles, mostly padding), and strided."""
+    shape, layout = {
+        "cl_c32": ((2, 32, 3, 6, 7), "cl"),
+        "cl_c45": ((2, 45, 3, 6, 7), "cl"),
+        "nc_aligned_c40": ((2, 40, 2, 4, 8), "nc"),
+        "nc_unaligned_c45": ((2, 45, 3, 5, 7), "nc"),
+        "nc_c3": ((2, 3, 4, 10, 12), "nc"),
+        "nc_c6_conv2d": ((3, 6, 9, 13), "nc"),
+        "nc_conv1d_c70": ((2, 70, 11), "nc"),
+        "strided_c21": ((2, 21, 3, 6, 14), "strided"),
+    }[path]
+    gen = torch.Generator().manual_seed(seed)
+    x = (20 * torch.randn(shape, generator=gen)).to(dtype)
+    x.view(-1)[:4] = torch.tensor([127.0, 0.5, -1.5, 2.5])
+    if nan:
+        x[1, 2, 1] = float("nan")
+    x = x.to(device)
+    if layout == "cl":
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    elif layout == "strided":
+        x = x[..., ::2]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("path", ["cl_c32", "cl_c45", "nc_aligned_c40",
+                                  "nc_unaligned_c45", "nc_c3",
+                                  "nc_c6_conv2d", "nc_conv1d_c70",
+                                  "strided_c21"])
+def test_quantize_act_read_paths_on_card(path, dtype, cuda_device):
+    """K6 bitwise equal to its plain version on each read path, dynamic
+    (exact ties: max |x| = 127 makes s = 1) and static, into K6's rows with
+    the pad zero; one NaN makes the dynamic scale NaN."""
+    from jmt_tpu_torch.ops.kernels import int8_conv as k5
+    x = _k6_input(path, dtype, cuda_device)
+    for scale in (None, 0.37):
+        q, s = k5.quantize_act(x, scale)
+        want_q, want_s = k5.quantize_act_plain(x, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(q, want_q)
+        if scale is None:
+            assert torch.equal(s, want_s) and s.item() == 1.0
+        else:
+            assert s == scale
+        _assert_k6_rows(q, k5)
+    nan = _k6_input(path, dtype, cuda_device, nan=True)
+    _, s = k5.quantize_act(nan)
+    assert torch.isnan(s) and torch.isnan(k5.quantize_act_plain(nan)[1])
+
+
+@pytest.mark.cuda
+def test_int8_graph_prepares_no_weight_on_card(cuda_device):
+    """An int8 server prepares its weights before capturing: no graph
+    quantizes or lays out a weight, each holds one K5 and K6 launch per
+    eligible conv, and its replays equal the eager forward that prepares
+    each weight per call, bit for bit; an in-place change of a parameter
+    afterwards makes predict raise."""
+    from jmt_tpu_torch.models.common import init_parameters
+    from jmt_tpu_torch.models.jmt_model import JMTModel
+    from jmt_tpu_torch.serve import InferenceServer
+    from jmt_tpu_torch.train.loops import calibration_forward, eval_forward
+    model = JMTModel(vision_backbones=("R2D1",),
+                     audio_backbones=("ResNet18",),
+                     joint_modalities="TRANSFORMER",
+                     output_format="SELF_ATTEN", num_heads=1, num_layers=1,
+                     dtype=torch.bfloat16)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    server = InferenceServer(model, seq=2, buckets=(1, 2), int8=True,
+                             use_wavlm=False, device=cuda_device)
+    clips, audio, _ = _request(2)
+    arrays = {"clips": torch.from_numpy(clips).to(cuda_device),
+              "audio": torch.from_numpy(audio).to(cuda_device)}
+    n = calibration_forward(model, arrays).numel()
+    assert n > 20 and len(server.int8_weights) == n
+    for graph in server.graphs.values():
+        assert graph.weight_preparations == 0
+        assert graph.launches["int8_conv"] == graph.launches[
+            "quantize_act"] == n
+    v, a = server.predict(clips, audio)
+    ve, ae = eval_forward(model, arrays, True)
+    np.testing.assert_array_equal(v, ve.float().cpu().numpy())
+    np.testing.assert_array_equal(a, ae.float().cpu().numpy())
+    with torch.no_grad():
+        next(model.parameters()).add_(1.0)
+    with pytest.raises(RuntimeError, match="changed in place"):
+        server.predict(clips, audio)
+
+
+# the stems: Cin <= 4 and a kernel longer than 1 along the last axis, which
+# K6 unfolds for K5 on the card (kernels.Unfold): (x, w, stride, pads,
+# dilation)
+INT8_STEMS = {
+    "i3d_stem_fold_main": ((1, 3, 14, 12, 12), (16, 3, 7, 5, 5), 1, None, 1),
+    "stem_fold_row_conv2d": ((1, 3, 14, 12), (16, 3, 7, 5), 1, None, 1),
+    "r2p1d_stem_s2_pad3": ((2, 3, 6, 20, 22), (45, 3, 1, 7, 7), (1, 2, 2),
+                           ((0, 0), (3, 3), (3, 3)), 1),
+    "c4_dilated_asym": ((2, 4, 9, 17), (8, 4, 3, 6), (1, 3),
+                        ((1, 2), (2, 1)), (1, 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(INT8_STEMS))
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_stem_unfold_on_card(name, mode, cuda_device):
+    """A stem through ``conv_nd`` under int8 on the card (K6 unfolds x, K5
+    convolves it with the unfolded weight) equals the CPU's plain int8
+    conv bit for bit (f32), and K6's unfolded q equals its plain
+    version's."""
+    from jmt_tpu_torch.ops import quant
+    from jmt_tpu_torch.ops.conv import conv_nd
+    from jmt_tpu_torch.ops.kernels import int8_conv as k5
+    xs, ws, stride, pads, dil = INT8_STEMS[name]
+    assert quant.eligible(ws) and k5.unfolds(ws)
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(xs, generator=gen)
+    w = torch.randn(ws, generator=gen) / 8
+    scales = None if mode == "dynamic" else [0.9 * float(x.abs().max()) / 127]
+    outs = []
+    for dev in ("cpu", cuda_device):
+        with torch.inference_mode(), quant.int8_inference(
+                act_scales=scales):
+            outs.append(conv_nd(x.to(dev), w.to(dev), stride, pads, dil))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[1].cpu(), outs[0])
+    u = k5.unfold_geometry(ws, xs, stride, dil, pads)
+    scale = None if scales is None else scales[0]
+    q, s = k5.quantize_act(x.to(cuda_device), scale, u)
+    want_q, want_s = k5.quantize_act_plain(x, scale, u)
+    torch.cuda.synchronize()
+    assert torch.equal(q.cpu(), want_q)
+    _assert_k6_rows(q, k5)

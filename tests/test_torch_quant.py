@@ -594,3 +594,169 @@ def test_int8_under_autograd_raises():
             conv_nd(torch.from_numpy(x), wt, stride, pads, dil)
         with torch.no_grad():
             conv_nd(torch.from_numpy(x), wt, stride, pads, dil)
+
+
+# ---------------------------------------------------------------------------
+# prepared weights and padded channels
+# ---------------------------------------------------------------------------
+def _light_forward(run, mode, weights=None):
+    """The light model's eval forward on the calibration batch, int8
+    dynamic or static (JAX's calibrated scales), its weights prepared per
+    call or taken from ``weights``."""
+    arrays = {k: torch.from_numpy(v) for k, v in run["arrays"].items()}
+    scales = run["scales"] if mode == "static" else None
+    out = loops.eval_forward(run["state"].model, arrays,
+                             "static" if mode == "static" else True, scales,
+                             weights)
+    return torch.stack(out).numpy()
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_prepared_weights_give_the_per_call_bits(light_run, mode):
+    """The list of prepared weights made by one eager int8 forward gives
+    bitwise the V/A of quantizing each weight per call, and the forward
+    that consumes it prepares none."""
+    run = light_run
+    want = _light_forward(run, mode)
+    weights = quant.collect_int8_weights(lambda: _light_forward(run, mode))
+    assert len(weights) == run["maxes"].size
+    assert all(isinstance(w, k5.Int8Weight) for w in weights)
+    before = k5.prepare_weight.calls
+    got = _light_forward(run, mode, weights)
+    assert k5.prepare_weight.calls == before
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fault", ["exhausted", "left_over", "misplaced"])
+def test_prepared_weights_raise_when_they_do_not_fit(light_run, fault):
+    """Too few prepared weights raise when they run out, too many when the
+    forward leaves, and a list in the wrong order at the first conv whose
+    weight shape differs; each names the remedy."""
+    run = light_run
+    weights = quant.collect_int8_weights(
+        lambda: _light_forward(run, "dynamic"))
+    bad = {"exhausted": weights[:-1], "left_over": weights + weights[:1],
+           "misplaced": weights[::-1]}[fault]
+    match = {"exhausted": "exhausted", "left_over": "left over",
+             "misplaced": "prepared weight 0"}[fault]
+    with pytest.raises(RuntimeError, match=match + ".*calibrate with the "
+                                               "same model/config"):
+        _light_forward(run, "dynamic", bad)
+
+
+def _inline_relayout(w_q: torch.Tensor, cpt: int) -> torch.Tensor:
+    """The first design's per-launch re-layout (``F.pad(w.permute(0, 2, 3,
+    4, 1).reshape(co, k), (0, kp - k))``, kp a multiple of 32), on w with
+    its channels zero-padded to ``cpt``; Kp here a multiple of 16."""
+    w3 = w_q.reshape(w_q.shape[:2] + (1,) * (5 - w_q.ndim) + w_q.shape[2:])
+    w3 = torch.nn.functional.pad(w3, (0, 0, 0, 0, 0, 0, 0, cpt - w3.shape[1]))
+    co = w3.shape[0]
+    k = int(np.prod(w3.shape[1:]))
+    kp = -(-k // 32) * 32
+    old = torch.nn.functional.pad(w3.permute(0, 2, 3, 4, 1).reshape(co, k),
+                                  (0, kp - k))
+    return old[:, :-(-k // 16) * 16]
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_relayout_matches_the_inline_formula(name):
+    """K5's B (``relayout``) is the old per-launch formula on the weight
+    with its channels padded to ``channel_pitch``; where Cin is a multiple
+    of 16 that is the old formula itself."""
+    _, ws, *_ = FAMILIES[name]
+    gen = torch.Generator().manual_seed(5)
+    w_q = torch.randint(-127, 128, ws, generator=gen, dtype=torch.int8)
+    cpt = k5.channel_pitch(ws[1])
+    got = k5.relayout(w_q)
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    assert got.shape[1] % 16 == 0 and got.shape[1] >= cpt * np.prod(ws[2:])
+    assert torch.equal(got, _inline_relayout(w_q, cpt))
+    if ws[1] % 16 == 0:
+        assert cpt == ws[1]
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_padded_channels_keep_the_sums(name):
+    """x and w with their channels padded by zeros to ``channel_pitch`` (as
+    K6 writes x and ``relayout`` lays out w) give the plain version's s32
+    sums of the unpadded operands; the K6-layout view (``as_rows``) is the
+    unpadded x."""
+    xs, ws, stride, pads, dil = FAMILIES[name]
+    gen = torch.Generator().manual_seed(6)
+    x_q = torch.randint(-127, 128, xs, generator=gen, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, ws, generator=gen, dtype=torch.int8)
+    pad = k5.channel_pitch(xs[1]) - xs[1]
+    assert 0 <= pad < 16 and (pad == 0) == (xs[1] % 16 == 0)
+    zeros = (0, 0) * (len(xs) - 2)
+    xp = torch.nn.functional.pad(x_q, zeros + (0, pad))
+    wp = torch.nn.functional.pad(w_q, zeros + (0, pad))
+    want = k5.int8_acc_plain(x_q, w_q, stride, dil, pads)
+    assert torch.equal(k5.int8_acc_plain(xp, wp, stride, dil, pads), want)
+    rows = k5.as_rows(x_q)
+    assert torch.equal(rows, x_q)
+    assert torch.equal(k5.int8_acc_plain(rows, w_q, stride, dil, pads), want)
+
+
+@pytest.mark.parametrize("c,pitch", [(3, 16), (8, 16), (15, 16), (16, 16),
+                                     (21, 32), (24, 32), (45, 48),
+                                     (230, 240), (460, 464), (921, 928),
+                                     (1152, 1152)])
+def test_channel_pitch(c, pitch):
+    assert k5.channel_pitch(c) == pitch
+
+
+@pytest.mark.parametrize("stale", [False, True])
+def test_int8_server_prepares_its_weights_and_refuses_stale_ones(light_run,
+                                                                 stale):
+    """On the CPU: an int8 server prepares each eligible weight once, at
+    construction, and serves bitwise what quantizing per call gives; an
+    in-place change of a parameter after that makes ``predict`` raise
+    instead of serving the stale int8 weights."""
+    from jmt_tpu_torch.serve import InferenceServer
+    run = light_run
+    model = run["state"].model
+    server = InferenceServer(model, seq=S, buckets=(B,), img_size=PX,
+                             device="cpu", int8=True, use_wavlm=False)
+    assert len(server.int8_weights) == run["maxes"].size
+    req = (run["arrays"]["clips"], run["arrays"]["audio"])
+    before = k5.prepare_weight.calls
+    got = np.stack(server.predict(*req))
+    assert k5.prepare_weight.calls == before
+    np.testing.assert_array_equal(got, _light_forward(run, "dynamic"))
+    if stale:
+        saved = next(model.parameters()).detach().clone()
+        with torch.no_grad():
+            next(model.parameters()).mul_(1.0)
+        try:
+            with pytest.raises(RuntimeError, match="changed in place"):
+                server.predict(*req)
+        finally:
+            with torch.no_grad():
+                next(model.parameters()).copy_(saved)
+
+
+@pytest.mark.parametrize("name", [n for n in sorted(FAMILIES)
+                                  if k5.unfolds(FAMILIES[n][1])])
+def test_stem_unfold_keeps_the_sums(name):
+    """A stem's x with the last kernel axis's taps unfolded into channels
+    (``unfold_plain``, what K6 writes for K5 on the card) and its weight
+    unfolded the same way (``unfold_weight``) give the plain version's
+    sums under the unfolded geometry; K6's plain version unfolds the
+    same q."""
+    xs, ws, stride, pads, dil = FAMILIES[name]
+    gen = torch.Generator().manual_seed(7)
+    x_q = torch.randint(-127, 128, xs, generator=gen, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, ws, generator=gen, dtype=torch.int8)
+    u = k5.unfold_geometry(ws, xs, stride, dil, pads)
+    assert u is not None and u.k == ws[-1]
+    want = k5.int8_acc_plain(x_q, w_q, stride, dil, pads)
+    got = k5.int8_acc_plain(k5.unfold_plain(x_q, u), k5.unfold_weight(w_q),
+                            u.stride, u.dilation, u.pads)
+    assert torch.equal(got, want)
+    x = torch.randn(xs, generator=gen)
+    q, s = k5.quantize_act_plain(x, None)
+    qu, su = k5.quantize_act_plain(x, None, u)
+    assert torch.equal(su, s) and torch.equal(qu, k5.unfold_plain(q, u))
+    w = k5.prepare_weight(w_q, torch.ones(ws[0]), unfold=True)
+    assert w.unfold and w.shape == ws
+    assert torch.equal(w.w_q, k5.unfold_weight(w_q))
