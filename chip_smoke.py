@@ -36,7 +36,14 @@ failure raises and the script exits non-zero:
    (held to K5's sums), the plain version by CUDA events; K6 at each
    conv's input, bitwise (q and s, dynamic and static) in its dtype and
    layout, at four shapes also in f32 and the other layout, timed dynamic
-   and static; per-family sums and bounds;
+   and static; per-family sums and bounds. The native-112 geometry
+   (``i3d_input_size=112``): K3 at its nine modules (14, 7 and 4 px,
+   avg_tail over 4 x 4) and with ``pool_in`` where ``pool_absorbable``
+   takes it (Mixed_3b, 4b; not 5b's pool on the odd 7 x 7 map), the same
+   tolerances; K5 and K6 at each of its 33 eligible conv shapes the 224
+   flagship lacks, the native stem (128 x 3 x 8 x 112 x 112 by 64 x 3 x
+   7^3, stride (1, 2, 2), unfolded into 21 channels) among them, bitwise
+   and timed as above;
 3. the flagship server (the main path): R2D1 MAX + I3D+TCN (112 -> 224 fold)
    with encoder_plus_self_attention, ResNet18 & wavLM with
    encoder_plus_self_attention, JMT SELF_ATTEN, 1 head, 1 layer, at full
@@ -90,6 +97,20 @@ failure raises and the script exits non-zero:
    (kernels in a CUDA graph, TF32 off) against CPU f32 (plain versions),
    V/A max abs delta
    <= 1e-3, with the gate off and on; card bf16 against card f32;
+8b. native112 (bench.py --native112): the flagship with the I3D at its
+   own 112 px, K3 on, graphed at buckets 1 and 8: bf16 (captures,
+   replays equal to eager, launches) and static int8 calibrated on the
+   bucket-1 request (68 K5 and K6 a forward, 104 eligible convs
+   unfused), replays equal to eager, drift from bf16 under the bound;
+   replay p50 and peak memory per mode; card f32 against CPU f32 within
+   1e-3;
+8c. bsweep (bench.py --bsweep): graphed bf16 servers at bucket 12 with
+   ``i3d_chunk`` 0 and 96 and at bucket 16 with 0, 128 and 64, each
+   chunked one within 2e-3 of the unchunked server at its bucket, its
+   replay equal to eager, 9 x chunks K3 launches a forward (asserted),
+   replay p50 and peak memory; dynamic int8 at 16 x 64 (74 + 3 x 18 K5
+   and K6 a forward on 74 weights prepared once), static refused at
+   construction and at ``calibrate``, naming ``i3d_chunk``;
 9. train: the flagship (flag on, bf16, every backbone frozen) through
    ``train/loops.init_state`` with the config's SGD defaults and
    ``make_train_step``: 3 steps at B = 8, S = 16 with their launches
@@ -176,8 +197,13 @@ failure raises and the script exits non-zero:
    over the one card twice, f32 (TF32 off) V/A within 2e-5 of the
    single-device eager forward, the parameters split and the split layers
    a forward, 1 K1, 12 K2, 9 K3 a forward (asserted); bf16 p50 at
-   buckets 1 and 8 beside the graphed single-device server's; ``serve
-   --tp 1 --exp-dir`` on cli_train's directory. ``second_card``: K1-K6
+   buckets 1 and 8 beside the graphed single-device server's; its int8
+   legs, dynamic and static: f32 V/A within 2e-3 of the graphed
+   one-device int8 server, the split layers a forward equal to the float
+   TP forward's, K6 74 and K5 74 + the split int8 convs a forward, no
+   weight prepared in a forward; bf16 p50 at buckets 1 and 8 beside the
+   graphed one-device int8 server's; ``serve --tp 1 --exp-dir`` on
+   cli_train's directory. ``second_card``: K1-K6
    on the last card after the first against their plain versions (each
    kernel raises its shared-memory limit per card; K5 and K6 bitwise);
    with one card it prints that it was skipped;
@@ -271,6 +297,8 @@ PER_FORWARD = {"flagship": dict(_NONE, log_mel=1, fused_attention=12,
                                          fused_attention=12,
                                          inception_module_fused=9,
                                          inception_pool_in=3),
+               "native112": dict(_NONE, log_mel=1, fused_attention=12,
+                                 inception_module_fused=9),
                "slice": dict(_NONE, log_mel=1, fused_attention=10),
                "pool1x1_chain": dict(_NONE, pool3_1x1=4)}
 # attention problems of one flagship forward at bucket 8 (B=8, S=16, E=512,
@@ -599,17 +627,23 @@ def check_attention(gen: torch.Generator) -> dict:
             "long": long}
 
 
-def inception_modules():
-    """(name, C, H = W, spec, pool_in) of the nine modules at 112 px clips
-    (the stem fold keeps the 224 px geometry: 28, 14 and 7); pool_in is
-    the MaxPool right before the module, or None."""
+def inception_modules(input_size: int = 224):
+    """(name, C, H = W, spec, pool_in, pre-pool H = W) of the nine modules
+    at I3D input ``input_size`` (112 px clips with the stem fold keep the
+    224 geometry: 28, 14 and 7; the native 112 gives 14, 7 and 4); pool_in
+    is the MaxPool right before the module, or None (and the pre-pool
+    size the module's own)."""
     from jmt_tpu_torch.models.i3d import I3D_STAGES, module_channels
     cin, out = 192, []
-    for i, (name, spec) in enumerate(I3D_STAGES):
-        if name.startswith("Mixed"):
+    hw = pre = -(-input_size // 2)                  # the stem, stride 2
+    for i, (name, spec) in enumerate(I3D_STAGES[1:], 1):
+        if name.startswith("MaxPool"):              # TF-SAME, stride 2
+            pre, hw = hw, -(-hw // spec[1][1])
+        elif name.startswith("Mixed"):
             before, pool = I3D_STAGES[i - 1]
-            out.append((name, cin, {"3": 28, "4": 14, "5": 7}[name[6]], spec,
-                        pool if before.startswith("MaxPool") else None))
+            pooled = before.startswith("MaxPool")
+            out.append((name, cin, hw, spec, pool if pooled else None,
+                        pre if pooled else hw))
             cin = module_channels(spec)
     return out
 
@@ -633,13 +667,15 @@ def random_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
 AVG_TAIL_REPEATS = 10
 
 
-def check_inception(gen: torch.Generator, absorbed: bool = False) -> dict:
-    """K3 against its plain version at every module spec (16 clips, T 8),
-    or with ``absorbed`` at the three modules that take a ``pool_in``, x
-    then the pre-pool map: f32 within 5e-5 and bf16 within 1e-2 of max
-    |plain|; Mixed_5c's avg_tail launch repeated ``AVG_TAIL_REPEATS``
-    times, each equal to the first bitwise. Then at 128 clips (bucket 8)
-    in bf16 the times of kernel,
+def check_inception(gen: torch.Generator, absorbed: bool = False,
+                    input_size: int = 224) -> dict:
+    """K3 against its plain version at every module spec (16 clips, T 8)
+    at the geometry of I3D input ``input_size`` (``inception_modules``),
+    or with ``absorbed`` at the modules whose ``pool_in``
+    ``pool_absorbable`` takes, x then the pre-pool map: f32 within 5e-5
+    and bf16 within 1e-2 of max |plain|; Mixed_5c's avg_tail launch
+    repeated ``AVG_TAIL_REPEATS`` times, each equal to the first bitwise.
+    Then at 128 clips (bucket 8) in bf16 the times of kernel,
     plain version and library (the port's own unfused InceptionModule:
     ``max_pool_same`` first when absorbed, then cuDNN, bf16, channels-last)
     and, when absorbed, of ``max_pool_same`` followed by the K3 launch
@@ -649,25 +685,28 @@ def check_inception(gen: torch.Generator, absorbed: bool = False) -> dict:
     from jmt_tpu_torch.ops.conv import max_pool_same
     from jmt_tpu_torch.ops.inception import (fold_inception_weights,
                                              inception_plain)
-    from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
+    from jmt_tpu_torch.ops.kernels.inception import (inception_module_fused,
+                                                     pool_absorbable)
     tol = {torch.float32: 5e-5, torch.bfloat16: 1e-2}
     worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
         ("k3_after_pool_ms",) if absorbed else ())
     total = dict.fromkeys(keys + ("bytes_ms", "ops_ms", "flops"), 0.0)
     cuda_gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, c, hw, spec, pool in inception_modules():
-        if absorbed and pool is None:
+    timed = []
+    for name, c, hw, spec, pool, pre in inception_modules(input_size):
+        if absorbed and not pool_absorbable(pool, (1, c, 8, pre, pre)):
             continue
         pool = pool if absorbed else None
         avg = name == "Mixed_5c"
-        pre = 2 * hw if absorbed else hw
+        pre = pre if absorbed else hw
         kw = dict(pool_in=pool, avg_tail=avg)
         m = InceptionModule(c, spec, dtype=torch.bfloat16, **kw)
         init_parameters(m, gen)
         random_bn(m, gen)
         m = m.cuda().eval()
-        rec = {"name": name, "C": c, "HW": hw, "spec": list(spec), **kw}
+        rec = {"name": name, "C": c, "HW": hw, "spec": list(spec),
+               "i3d_input_size": input_size, **kw}
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(16, 8, pre, pre, c, device="cuda",
                             generator=cuda_gen).relu_().to(dtype)
@@ -735,10 +774,12 @@ def check_inception(gen: torch.Generator, absorbed: bool = False) -> dict:
         total["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
         total["ops_ms"] += flops / BF16_PEAK_FLOPS * 1e3
         total["flops"] += flops
+        timed.append(name)
         del m, x, fw
-    return {"timing": ("sum over Mixed_3b, 4b and 5b with pool_in"
+    return {"timing": (f"sum over {', '.join(timed)} with pool_in"
                        if absorbed else "sum over the 9 modules of one "
-                       "bucket-8 forward") + " (128 clips)",
+                       "bucket-8 forward") + f" (128 clips, I3D input "
+                       f"{input_size})",
             "max_abs_err": worst[torch.float32][0],
             "rel_err_f32": worst[torch.float32][1],
             "max_abs_err_bf16": worst[torch.bfloat16][0],
@@ -1132,7 +1173,7 @@ def int8_family(c: dict) -> str:
     if len(c["w"]) == 4:
         return "resnet_1x1" if k == (1, 1, 1) else "resnet_3x3"
     if cin <= 3:
-        return "i3d_stem_fold"
+        return "i3d_stem_native" if k == (7, 7, 7) else "i3d_stem_fold"
     if k == (1, 1, 1):
         return "r2p1d_downsample" if c["stride"] != (1, 1, 1) else "i3d_1x1"
     if k == (3, 3, 3):
@@ -1310,7 +1351,7 @@ def flagship_int8_convs() -> tuple:
 def check_int8(registers: dict) -> tuple:
     """K5 and K6 at every distinct eligible conv of the flagship at bucket
     8 (bf16, inception unfused), recorded in a calibration forward; the
-    records summed over one forward's calls."""
+    records summed over one forward's calls, and the shapes checked."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     calls, firsts, counts = flagship_int8_convs()
     k5_rows, k6_rows = [], []
@@ -1380,7 +1421,7 @@ def check_int8(registers: dict) -> tuple:
               "bound_ms": total(k6_rows, "bound_ms"), "bound_by": "bytes",
               "library_ms": None,
               "registers": registers.get("int8_conv")}
-    return k5_rec, k6_rec
+    return k5_rec, k6_rec, set(firsts)
 
 
 INT8_FORWARD = {False: dict(_NONE, log_mel=1, fused_attention=12),
@@ -1778,6 +1819,273 @@ def phase_card_vs_cpu() -> None:
     if not (d_cpu <= 1e-3 and d_abs <= 1e-3):
         raise AssertionError(f"card f32 vs CPU f32 V/A delta {d_cpu}, "
                              f"absorbed {d_abs} (limit 1e-3)")
+
+
+# ---------------------------------------------------------------------------
+# native 112 and the B-sweep: configurations that JAX serves (bench.py
+# --native112 and --bsweep)
+# ---------------------------------------------------------------------------
+# the I3D at its own input size: the plain 7 x 7 x 7 stem on 112 px clips
+NATIVE_CONFIG = dict(FLAGSHIP_CONFIG, i3d_input_size=112)
+# its eligible convs: the native stem is one conv where the fold runs
+# seven (the main conv and its three row and three column corrections)
+INT8_SCALES_NATIVE = {False: 104, True: 68}
+# the fused flagship's eligible convs inside I3D+TCN (the 224 fold: the
+# stem's seven, Conv3d_2b and 2c, the TCN's nine), which an int8 forward
+# runs once per I3D chunk
+INT8_I3D_FUSED = 18
+# bench.py's --bsweep legs (bench.py:281-292): bucket and I3D chunks, 0
+# the unchunked server each chunked one is held to
+BSWEEP = ((12, (0, 96)), (16, (0, 128, 64)))
+BSWEEP_INT8 = (16, 64)
+
+
+def replay_p50(server, iters: int = 15) -> dict:
+    """Each bucket's graph replay p50, CUDA events around each replay."""
+    out = {}
+    for b, graph in server.graphs.items():
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        times.sort()
+        out[str(b)] = times[len(times) // 2]
+    return out
+
+
+def check_int8_native(known) -> dict:
+    """K5 and K6 (``k5_check``, ``k6_check``: bitwise, timed) at every
+    eligible conv shape of the native-112 flagship at bucket 8 (bf16,
+    inception unfused: 104 convs) that the 224 flagship's ``known``
+    shapes lack, the native stem (``i3d_stem_native``) among them."""
+    from jmt_tpu_torch.train.loops import _on
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    model = make_model(NATIVE_CONFIG, torch.bfloat16,
+                       i3d_fused_inception=False).cuda()
+    req = dict(zip(REQUEST_KEYS, request(np.random.default_rng(7), 8, 16)))
+    calls = record_int8_convs(model, _on(req, torch.device("cuda")))
+    del model
+    torch.cuda.empty_cache()
+    if len(calls) != INT8_SCALES_NATIVE[False]:
+        raise AssertionError(f"native112: {len(calls)} eligible convs, "
+                             f"expected {INT8_SCALES_NATIVE[False]}")
+    counts, firsts = {}, {}
+    for c in calls:
+        if _key(c) not in known:
+            counts[_key(c)] = counts.get(_key(c), 0) + 1
+            firsts.setdefault(_key(c), c)
+    k5_rows, k6_rows = [], []
+    for key, c in firsts.items():
+        k5_rows.append(k5_check(c, counts[key], gen))
+        k6_rows.append(k6_check(c, counts[key], gen, variants=False))
+        torch.cuda.empty_cache()
+    for kernel, rows in (("int8_conv", k5_rows), ("quantize_act", k6_rows)):
+        for row in rows:
+            emit({"phase": "kernel", "kernel": kernel,
+                  "geometry": "native112", **row})
+    stem = [r for r in k5_rows if r["family"] == "i3d_stem_native"]
+    if len(stem) != 1:
+        raise AssertionError(f"native112: {len(stem)} native stem shapes")
+    return {"new_shapes": len(firsts), "new_calls_a_forward": sum(
+                counts.values()),
+            "k5_ms": sum(r["ms"] * r["calls_a_forward"] for r in k5_rows),
+            "k6_ms": sum(r["ms"] * r["calls_a_forward"] for r in k6_rows),
+            "stem": {k: stem[0][k] for k in ("x", "w", "stride", "pads",
+                                             "ms", "bound_ms",
+                                             "cudnn_bf16_conv_ms")},
+            "stem_k6_ms": next(r["ms"] for r, s in zip(k6_rows, k5_rows)
+                               if s["family"] == "i3d_stem_native"),
+            "max_abs_err": 0.0}
+
+
+def phase_native112(rng, kernels_native: dict) -> dict:
+    """The flagship with the I3D at its native 112 (``NATIVE_CONFIG``,
+    K3 on), graphed at buckets 1 and 8: in bf16 (captures, replays equal
+    to eager bitwise, launches; ``drive``) and in static int8 calibrated
+    on the bucket-1 request (68 K5 and K6 a forward, no weight prepared
+    in a capture, replays equal to eager, V/A drift from bf16 under
+    ``FLAGSHIP_VA_ABS_BOUND``); each mode's replay p50 and peak memory.
+    Card f32 (graphed, TF32 off) against CPU f32 at one seq-4 request,
+    V/A within 1e-3. ``kernels_native``: the kernels phase's K3, K5 and K6
+    checks at this geometry, repeated in the record."""
+    from jmt_tpu_torch.ops import quant
+    from jmt_tpu_torch.serve import InferenceServer
+    from jmt_tpu_torch.train.loops import _on, eval_forward
+    model = make_model(NATIVE_CONFIG, torch.bfloat16,
+                       i3d_fused_inception=True)
+    reqs = {b: request(rng, b, 16) for b in (1, 8)}
+    rec = {"phase": "native112", "i3d_input_size": 112,
+           "kernels": kernels_native, "replay_p50_ms": {},
+           "peak_allocated_gib": {}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server, built = counted(lambda: InferenceServer(model, seq=16,
+                                                    buckets=(1, 8)))
+    expect_launches("native112 server build", built, PER_FORWARD["native112"],
+                    3 * len(server.buckets))
+    drive("native112", server, reqs)
+    base = {b: server.predict(*reqs[b]) for b in reqs}
+    rec["replay_p50_ms"]["bf16"] = replay_p50(server)
+    rec["peak_allocated_gib"]["bf16"] = (torch.cuda.max_memory_allocated()
+                                         / 2 ** 30)
+    del server
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = INT8_SCALES_NATIVE[True]
+    server = InferenceServer(model, seq=16, buckets=(1, 8), int8=True)
+    scales = server.calibrate(*reqs[1])
+    if len(scales) != n:
+        raise AssertionError(f"native112: {len(scales)} scales, expected {n}")
+    launches = int8_expect("native112_static", server, n, True)
+    stat = {b: server.predict(*reqs[b]) for b in reqs}
+    rec["replay_p50_ms"]["static_int8"] = replay_p50(server)
+    rec["peak_allocated_gib"]["static_int8"] = (
+        torch.cuda.max_memory_allocated() / 2 ** 30)
+    eager = eval_forward(model, _on(dict(zip(REQUEST_KEYS, reqs[8])),
+                                    torch.device("cuda")),
+                         "static", scales, server.int8_weights)
+    rec["static_replay_vs_eager_b8"] = va_max_abs(
+        stat[8], [t.float().cpu().numpy() for t in eager])
+    rec["static_int8_launches_b8"] = launches
+    for b in reqs:
+        rec[f"static_vs_bf16_va_max_abs_b{b}"] = va_max_abs(stat[b], base[b])
+    del server, eager
+    torch.cuda.empty_cache()
+    # card f32 (kernels in a graph, TF32 off) against CPU f32
+    req = request(rng, 1, 4)
+    sd = model.state_dict()
+    out = {}
+    with full_fp32():
+        for name, dev in (("card_f32", None), ("cpu_f32", "cpu")):
+            f32 = make_model(NATIVE_CONFIG, None, i3d_fused_inception=True)
+            f32.load_state_dict(sd)
+            server = InferenceServer(f32, seq=4, buckets=(1,), device=dev)
+            out[name] = server.predict(*req)
+            del server, f32
+    rec["card_f32_vs_cpu_f32_max_abs"] = va_max_abs(out["card_f32"],
+                                                   out["cpu_f32"])
+    emit(rec)
+    bound_ = quant.FLAGSHIP_VA_ABS_BOUND
+    drifts = [rec[f"static_vs_bf16_va_max_abs_b{b}"] for b in reqs]
+    if not (rec["card_f32_vs_cpu_f32_max_abs"] <= 1e-3
+            and all(0.0 < d < bound_ for d in drifts)
+            and rec["static_replay_vs_eager_b8"] == 0.0
+            and all(np.isfinite(x).all() for v in stat.values()
+                    for x in v)):
+        raise AssertionError(f"native112: {rec}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bsweep(rng) -> dict:
+    """bench.py's B-sweep on the flagship (bf16, K3 on): graphed servers
+    at bucket 12 with ``i3d_chunk`` 0 and 96 and at bucket 16 with 0, 128
+    and 64, each chunked one's V/A held to the unchunked server's at its
+    bucket within ``STREAM_TOL_BF16`` (features computed at another
+    batch), its replay equal to its eager forward bitwise, 9 x chunks K3
+    launches in its capture (asserted), its replay p50 and peak memory.
+    Then at bucket 16, chunk 64 in int8: dynamic serves (K5 and K6 74 + 3 x
+    18 a forward, the I3D's 18 once per chunk on the same 74 prepared
+    weights, none prepared in the capture; replay equal to eager; V/A
+    drift from the bf16 chunked server under ``FLAGSHIP_VA_ABS_BOUND``);
+    static raises naming ``i3d_chunk``, at construction and at
+    ``calibrate``, as JAX's server fails there. Returns the K3 launches a
+    chunked forward by (bucket, chunk)."""
+    from jmt_tpu_torch.ops import quant
+    from jmt_tpu_torch.serve import InferenceServer
+    model = make_model(FLAGSHIP_CONFIG, torch.bfloat16,
+                       i3d_fused_inception=True)
+    backbones = model.backbones
+    k3, bf16_out = {}, {}
+    for b, chunks in BSWEEP:
+        req = request(rng, b, 16)
+        for ck in chunks:
+            backbones.i3d_chunk = ck
+            n_chunks = backbones.i3d_chunks(b * 16)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            server = InferenceServer(model, seq=16, buckets=(b,))
+            graph = server.graphs[b]
+            want = dict(PER_FORWARD["flagship"],
+                        inception_module_fused=9 * n_chunks)
+            out = server.predict(*req)
+            eager = eager_predict(server, req)
+            rec = {"phase": "bsweep", "bucket": b, "i3d_chunk": ck,
+                   "chunks": n_chunks, "capture_seconds": graph.seconds,
+                   "k3_launches_a_forward":
+                       graph.launches["inception_module_fused"],
+                   "replay_p50_ms": replay_p50(server)[str(b)],
+                   "peak_allocated_gib": torch.cuda.max_memory_allocated()
+                   / 2 ** 30,
+                   "replay_vs_eager": va_max_abs(out, eager),
+                   "vs_unchunked_va_max_abs": va_max_abs(
+                       out, bf16_out.get((b, 0), out))}
+            emit(rec)
+            if ck:
+                k3[f"{b}x{ck}"] = rec["k3_launches_a_forward"]
+            bf16_out[(b, ck)] = out
+            launches = graph.launches
+            del server, graph                   # the graph holds its pool
+            if (launches != want or rec["replay_vs_eager"] != 0.0
+                    or not rec["vs_unchunked_va_max_abs"] <= STREAM_TOL_BF16
+                    or not all(np.isfinite(x).all() for x in out)):
+                raise AssertionError(f"bsweep: {rec}, launches {launches}, "
+                                     f"expected {want}")
+    b, ck = BSWEEP_INT8
+    backbones.i3d_chunk = ck
+    n_chunks = backbones.i3d_chunks(b * 16)
+    req = request(rng, b, 16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = InferenceServer(model, seq=16, buckets=(b,), int8=True)
+    graph = server.graphs[b]
+    n = INT8_SCALES[True] + (n_chunks - 1) * INT8_I3D_FUSED
+    want = dict(PER_FORWARD["flagship"], inception_module_fused=9 * n_chunks,
+                int8_conv=n, quantize_act=n)
+    out = server.predict(*req)
+    eager = eager_predict(server, req)
+    rec = {"phase": "bsweep_int8", "bucket": b, "i3d_chunk": ck,
+           "chunks": n_chunks, "mode": "dynamic",
+           "prepared_weights": len(server.int8_weights),
+           "weight_preparations_in_capture": graph.weight_preparations,
+           "launches_a_forward": graph.launches,
+           "replay_p50_ms": replay_p50(server)[str(b)],
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "replay_vs_eager": va_max_abs(out, eager),
+           "vs_bf16_va_max_abs": va_max_abs(out, bf16_out[(b, ck)])}
+    refused = []
+    for how in ("calibrate", "construct"):
+        try:
+            if how == "calibrate":
+                server.calibrate(*request(rng, 1, 16))
+            else:
+                InferenceServer(model, seq=16, buckets=(b,), int8="static",
+                                int8_scales=[0.01] * INT8_SCALES[True])
+        except RuntimeError as err:
+            if "i3d_chunk" in str(err):
+                refused.append(how)
+    rec["static_refused_at"] = refused
+    emit(rec)
+    del server, graph
+    backbones.i3d_chunk = 0
+    torch.cuda.empty_cache()
+    if (rec["launches_a_forward"] != want
+            or rec["weight_preparations_in_capture"]
+            or rec["prepared_weights"] != INT8_SCALES[True]
+            or rec["replay_vs_eager"] != 0.0
+            or not 0.0 < rec["vs_bf16_va_max_abs"]
+            < quant.FLAGSHIP_VA_ABS_BOUND
+            or refused != ["calibrate", "construct"]):
+        raise AssertionError(f"bsweep int8: {rec}, expected launches {want}")
+    return k3
 
 
 # ---------------------------------------------------------------------------
@@ -3412,7 +3720,7 @@ def k3_times() -> None:
     from jmt_tpu_torch.models.i3d import InceptionModule
     from jmt_tpu_torch.ops.inception import fold_inception_weights
     from jmt_tpu_torch.ops.kernels.inception import inception_module_fused
-    name, c, hw, spec, _ = inception_modules()[-1]
+    name, c, hw, spec, _, _ = inception_modules()[-1]
     gen = torch.Generator().manual_seed(0)
     m = InceptionModule(c, spec, dtype=torch.bfloat16, avg_tail=True)
     init_parameters(m, gen)
@@ -3873,7 +4181,8 @@ def phase_tp_server(exp: str) -> None:
     K1/K2/K3 launches a TP forward (the flagship's: they run whole on the
     lead device); then in bf16 the p50 at buckets 1 and 8 beside the
     graphed single-device server's (a TP server runs eagerly); then
-    ``serve --tp 1 --exp-dir`` on ``cli_train``'s experiment."""
+    ``serve --tp 1 --exp-dir`` on ``cli_train``'s experiment. Between
+    them the int8 legs (``tp_int8_legs``)."""
     import io
     from jmt_tpu_torch import serve
     from jmt_tpu_torch.parallel import tp
@@ -3918,6 +4227,7 @@ def phase_tp_server(exp: str) -> None:
                                                        req)})
     del graphed, tps, model
     torch.cuda.empty_cache()
+    tp_int8_legs(cfg, reqs, rec["split_layers_per_forward"])
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -3928,6 +4238,94 @@ def phase_tp_server(exp: str) -> None:
              for b in ("1", "8") for mode in ("relay", "device_resident")}})
     if rc != 0 or sorted(stats["buckets"]) != ["1", "8"]:
         raise AssertionError(f"serve --tp 1: {rc}, {stats}")
+
+
+# TP int8 against one device, f32 (TF32 off): the split int8 convs are
+# the whole conv's columns bit for bit (K5's exact s32 sums, per-channel
+# dequantize); the split dense layers may round otherwise, and a flipped
+# last bit that moves an activation across a quantization step moves the
+# V/A as it does between the port and JAX (tests/test_torch_quant.py's
+# INT8_VA_TOL, dynamic)
+TP_INT8_VA_TOL = 2e-3
+
+
+def tp_int8_legs(cfg: dict, reqs: dict, split_float: int) -> None:
+    """The TP flagship server over ``TP_MESH`` in int8, dynamic and
+    static, against the one-device graphed int8 server in the same mode:
+    f32 (TF32 off) V/A at bucket 8 within ``TP_INT8_VA_TOL`` (static on
+    the one-device server's scales; the scales that ``calibrate`` under
+    the mesh gives beside them), as many split layers a forward as the
+    float TP forward (``split_float``: its int8 convs split), K6 once a
+    conv and K5 once a device slice, no weight prepared in a forward, one
+    weight per device slice prepared once; then bf16 p50 at buckets 1 and
+    8 beside the graphed one-device int8 server's."""
+    from jmt_tpu_torch import serve
+    from jmt_tpu_torch.ops.kernels.int8_conv import prepare_weight
+    from jmt_tpu_torch.parallel import tp
+    n = INT8_SCALES[True]
+    with full_fp32():
+        model = make_model(cfg, None).cuda().eval()
+        one = serve.InferenceServer(model, buckets=(8,), int8=True)
+        tps = serve.InferenceServer(model, buckets=(8,), int8=True,
+                                    model_mesh=list(TP_MESH))
+        for mode in ("dynamic", "static"):
+            rec = {"phase": "tp_server_int8", "mode": mode,
+                   "mesh": list(TP_MESH), "dtype": "float32"}
+            if mode == "static":
+                scales = one.calibrate(*reqs[1])
+                mesh_scales = tps.calibrate(*reqs[1])
+                rec["mesh_calibration_scales_differing"] = sum(
+                    a != b for a, b in zip(scales, mesh_scales))
+                tps = serve.InferenceServer(
+                    model, buckets=(8,), int8="static", int8_scales=scales,
+                    model_mesh=list(TP_MESH))
+            want = one.predict(*reqs[8])
+            split = sum(isinstance(w, tuple) for w in tps.int8_weights)
+            calls, prepared = tp.sharded_calls(), prepare_weight.calls
+            got, launches = counted(lambda: tps.predict(*reqs[8]))
+            rec.update({
+                "prepared_weights": len(tps.int8_weights),
+                "split_int8_convs": split,
+                "split_layers_per_forward": tp.sharded_calls() - calls,
+                "split_layers_float_forward": split_float,
+                "weight_preparations_in_forward":
+                    prepare_weight.calls - prepared,
+                "va_max_abs_vs_single_device_graphed": va_max_abs(got,
+                                                                  want),
+                **launches})
+            emit(rec)
+            expect = dict(PER_FORWARD["flagship"], quantize_act=n,
+                          int8_conv=n + (len(TP_MESH) - 1) * split)
+            if not (rec["va_max_abs_vs_single_device_graphed"]
+                    <= TP_INT8_VA_TOL and split > 0
+                    and rec["split_layers_per_forward"] == split_float
+                    and not rec["weight_preparations_in_forward"]
+                    and len(tps.int8_weights) == n and launches == expect):
+                raise AssertionError(f"tp_server int8: {rec}, expected "
+                                     f"launches {expect}")
+        del model, one, tps
+    torch.cuda.empty_cache()
+    model = make_model(cfg, torch.bfloat16)
+    for mode in ("dynamic", "static"):
+        graphed = serve.InferenceServer(model, buckets=(1, 8), int8=True)
+        tps = serve.InferenceServer(model, buckets=(1, 8), int8=True,
+                                    model_mesh=list(TP_MESH))
+        if mode == "static":
+            scales = graphed.calibrate(*reqs[1])
+            tps = serve.InferenceServer(
+                model, buckets=(1, 8), int8="static", int8_scales=scales,
+                model_mesh=list(TP_MESH))
+        for b, req in reqs.items():
+            emit({"phase": "tp_server_latency", "dtype": "bfloat16",
+                  "int8": mode, "bucket": b,
+                  "bf16_va_max_abs_vs_single_device_graphed": va_max_abs(
+                      tps.predict(*req), graphed.predict(*req)),
+                  "tp": request_latency(tps.predict, req),
+                  "graphed_single_device": request_latency(graphed.predict,
+                                                           req)})
+        del graphed, tps
+        torch.cuda.empty_cache()
+    del model
 
 
 @torch.no_grad()
@@ -3962,7 +4360,7 @@ def kernel_runs(dev: torch.device) -> dict:
                     gen, 2, lq, lq, 512, dtype))
                 runs[f"fused_attention_{lq}_{str(dtype)[6:]}"] = (
                     fa.fused_attention(q, k, v), fa.attention_plain(q, k, v))
-        for name, c, hw, spec, _ in inception_modules():
+        for name, c, hw, spec, _, _ in inception_modules():
             if name not in ("Mixed_4b", "Mixed_5c"):
                 continue
             avg = name == "Mixed_5c"
@@ -4109,7 +4507,15 @@ def main() -> int:
                     "replaces": "jmt_tpu/ops/inception_pallas.py:482",
                     "dtype": "bfloat16", **check_inception(gen)}]
         k3_pool_in = check_inception(gen, absorbed=True)
-        k5, k6 = check_int8(registers)
+        # K3 before the int8 checks: after their graph replays the
+        # profiler's traces of a K3 launch (launch_ms) came back one device
+        # operation short, every retry
+        kernels_native = {
+            "inception_module_fused": check_inception(gen, input_size=112),
+            "inception_pool_in": check_inception(gen, absorbed=True,
+                                                 input_size=112)}
+        k5, k6, int8_shapes = check_int8(registers)
+        kernels_native["int8"] = check_int8_native(int8_shapes)
     torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     with phase("flagship"):
@@ -4131,6 +4537,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("card_vs_cpu"), full_fp32():
         phase_card_vs_cpu()
+    torch.cuda.empty_cache()
+    with phase("native112"):
+        native_int8 = phase_native112(np.random.default_rng(11),
+                                      kernels_native)
+    with phase("bsweep"):
+        bsweep_k3 = phase_bsweep(np.random.default_rng(12))
     torch.cuda.empty_cache()
     with phase("train"):
         trained = phase_train(np.random.default_rng(5))
@@ -4182,6 +4594,16 @@ def main() -> int:
         pool_in_launches=absorbed["inception_pool_in"],
         launches_of="one graphed forward of the flagship_absorbed server "
                     "(bucket 8's capture)")
+    kernels[2]["native112"] = {
+        k: kernels_native["inception_module_fused"][k]
+        for k in ("max_abs_err", "rel_err_f32", "max_abs_err_bf16",
+                  "rel_err_bf16", "ms", "plain_ms", "library_ms",
+                  "bound_ms")}
+    kernels[2]["native112"]["launches"] = native_int8[
+        "inception_module_fused"]
+    kernels[2]["chunked_launches"] = dict(
+        bsweep_k3, of="one graphed bf16 forward at bucket x i3d_chunk "
+                      "(bsweep): 9 per chunk")
     kernels[2]["registers"] = {
         "bf16 (igemm_sm90)": max((v for f, v in registers["inception"].items()
                                   if "igemm_sm90" in f), default=None),
@@ -4197,6 +4619,15 @@ def main() -> int:
         if rec["launches"] != INT8_SCALES[False]:
             raise AssertionError(f"{rec['name']}: {rec['launches']} "
                                  f"launches a forward")
+        native, k5_row = kernels_native["int8"], rec["name"] == "int8_conv"
+        rec["native112"] = {
+            "launches": native_int8[rec["name"]],
+            "launches_of": "one graphed forward of the native112 static "
+                           "int8 server (bucket 8, inception fused)",
+            "new_shapes": native["new_shapes"],
+            "ms_new_shapes": native["k5_ms" if k5_row else "k6_ms"],
+            "stem_ms": native["stem"]["ms"] if k5_row
+            else native["stem_k6_ms"]}
         kernels.append(rec)
     print(smi)
     emit({"kernels": kernels})

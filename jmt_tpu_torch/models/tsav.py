@@ -7,7 +7,10 @@ feature reduce, and the I3D+TCN vision backbone with a max over time. The
 (B, S, ...) batch is flattened to (B*S, ...) and each backbone runs once
 on it. I3D runs in chunks of ``i3d_chunk`` clips only while its BN uses
 running statistics (frozen, ``finetune_bn="frozen"`` or eval), as in JAX:
-chunked batch statistics would differ from the whole batch's.
+chunked batch statistics would differ from the whole batch's. Under int8
+the chunks run through ``ops/quant.stream_chunks``, the counterpart of
+JAX's scan: one set of int8 weights for every chunk; static int8 refuses
+a streamed batch, as JAX's does.
 
 ``remat`` (``remat_backbones``) rematerializes the backbones that train
 (``models/common.remat``): with ``remat_granularity="backbone"`` each
@@ -39,6 +42,7 @@ from jmt_tpu_torch.models.common import Linear, remat
 from jmt_tpu_torch.models.i3d import I3DTCN
 from jmt_tpu_torch.models.resnet18 import ResNet18
 from jmt_tpu_torch.models.video_resnet import VideoResNet
+from jmt_tpu_torch.ops import quant
 from jmt_tpu_torch.ops.norm import TorchBatchNorm
 
 
@@ -138,6 +142,14 @@ class TwoStreamBackbones(nn.Module):
         return not any(m.training for m in self.vision_i3d.modules()
                        if isinstance(m, TorchBatchNorm))
 
+    def i3d_chunks(self, n: int) -> int:
+        """The chunks I3D streams ``n`` flat clips in (1: one call)."""
+        ck = self.i3d_chunk
+        if "I3D" in self.vision_backbones and 0 < ck < n and n % ck == 0 \
+                and self._i3d_running_stats():
+            return n // ck
+        return 1
+
     def forward(self, audio_spec: Optional[torch.Tensor],
                 clips: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         """audio_spec: (B, S, 64, T) log-mel; clips: (B, S, T, H, W, 3).
@@ -173,10 +185,10 @@ class TwoStreamBackbones(nn.Module):
                     f"i3d_chunk={ck} does not divide the flat clip count "
                     f"{n}: chunk streaming DISABLED; pick a divisor "
                     f"(e.g. B=12,S=16 -> 96; B=16 -> 128)", RuntimeWarning)
-            if ck > 0 and n > ck and n % ck == 0 and \
-                    self._i3d_running_stats():
-                tfeat = torch.cat([self._i3d_trunk(flat[i:i + ck])
-                                   for i in range(0, n, ck)])
+            if self.i3d_chunks(n) > 1:
+                # every chunk runs the same int8 weights (quant's note)
+                tfeat = torch.cat(quant.stream_chunks(self._i3d_trunk,
+                                                      flat.split(ck)))
             else:
                 tfeat = self._i3d_trunk(flat)
             feats["vision_i3d"] = torch.amax(tfeat, dim=1).reshape(b, s, 512)

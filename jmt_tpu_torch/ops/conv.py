@@ -19,8 +19,8 @@ in torch's NC... layout:
 
 * ``conv_nd``: every conv of the backbones, the counterpart of JAX's
   ``conv_nd``: int8 (``ops/quant.py``) under an int8 context when the
-  weight is ``eligible``, else ``F.conv1d/2d/3d`` (its output channels
-  split over devices under ``parallel/tp.tensor_parallel``).
+  weight is ``eligible``, else ``F.conv1d/2d/3d``; either way its output
+  channels split over devices under ``parallel/tp.tensor_parallel``.
 
 The JAX package's space-to-depth stem (``conv3d_s2d_hw``) was a TPU
 lane-packing trick: a plain conv3d computes the same function, int8
@@ -78,11 +78,11 @@ def conv_nd(x: torch.Tensor, weight: torch.Tensor, stride=1,
         return _CONV[w.ndim - 2](xp, w, None, stride, padding, dilation)
 
     def float_conv():
-        return conv(x, weight)
+        return tp.split_output(conv, x, weight)
 
     if quant.quant_enabled() and quant.eligible(weight.shape):
         return quant.int8_conv(x, weight, stride, pads, dilation, float_conv)
-    return tp.split_output(conv, x, weight)
+    return float_conv()
 
 
 def max_pool_same(x: torch.Tensor, kernel: Sequence[int],

@@ -35,6 +35,14 @@ mode its scales, into the graph.
   forward. The list is a snapshot: it does not follow an in-place update
   of the weights (``serve.InferenceServer`` refuses to replay after one).
 
+* under a model mesh (``parallel/tp.tensor_parallel``) a conv that the
+  rule splits takes one prepared weight per device slice; calibration's
+  float convs split as every float conv does;
+* chunk streaming (``stream_chunks``, I3D's ``i3d_chunk``): the chunks of
+  one forward run the same convs against the same prepared weights, as
+  JAX's scan traces its body once; static scales and calibration refuse
+  a streamed batch.
+
 The s8 product and the activation quantizer are kernels K5 and K6
 (``ops/kernels/int8_conv.py``). Training is never quantized: the kernels
 have no backward, so an int8 conv under autograd raises.
@@ -185,17 +193,28 @@ def _next_scale() -> Optional[float]:
     return scales[_STATE.pos - 1]
 
 
-def _prepared_weight(weight: torch.Tensor):
-    """The conv's ``kernels.Int8Weight``: the next of the prepared list,
-    or quantized and laid out now (and collected, under
-    ``collect_int8_weights``)."""
+def _prepare(weight: torch.Tensor, devices) -> object:
+    """The conv's ``kernels.Int8Weight``, or under a model mesh the tuple
+    of its output-channel slices, slice i on device i (each channel's
+    scale and integers are the whole weight's)."""
     from jmt_tpu_torch.ops.kernels import int8_conv as kernels
+    q, s = quantize_weight_per_channel(weight)
+    # on the card K5 runs a stem on K6's unfolded x (kernels.Unfold)
+    unfold = weight.is_cuda and kernels.unfolds(weight.shape)
+    if devices is None:
+        return kernels.prepare_weight(q, s, unfold=unfold)
+    n = len(devices)
+    return tuple(kernels.prepare_weight(qi.to(d), si.to(d), unfold=unfold)
+                 for d, qi, si in zip(devices, q.chunk(n), s.chunk(n)))
+
+
+def _prepared_weight(weight: torch.Tensor, devices=None):
+    """The conv's prepared weight (``_prepare``; ``devices``: the model
+    mesh when it splits the conv): the next of the prepared list, or
+    prepared now (and collected, under ``collect_int8_weights``)."""
     prepared = getattr(_STATE, "weights", None)
     if prepared is None:
-        # on the card K5 runs a stem on K6's unfolded x (kernels.Unfold)
-        w = kernels.prepare_weight(
-            *quantize_weight_per_channel(weight),
-            unfold=weight.is_cuda and kernels.unfolds(weight.shape))
+        w = _prepare(weight, devices)
         coll = getattr(_STATE, "wcoll", None)
         if coll is not None:
             coll.append(w)
@@ -206,13 +225,75 @@ def _prepared_weight(weight: torch.Tensor):
             "int8 prepared weights exhausted: the model runs more eligible "
             f"convs than were prepared — {_REMEDY}")
     w = prepared[pos]
-    if w.shape != tuple(weight.shape) or w.wmat.device != weight.device:
+    if devices is None:
+        want = [(tuple(weight.shape), weight.device)]
+    else:
+        rows = (weight.shape[0] // len(devices),) + tuple(weight.shape[1:])
+        want = [(rows, d) for d in devices]
+    got = list(w) if isinstance(w, tuple) else [w]
+    if [(g.shape, g.wmat.device) for g in got] != want:
         raise RuntimeError(
-            f"int8 prepared weight {pos} is {w.shape} on {w.wmat.device}, "
-            f"the conv's {tuple(weight.shape)} on {weight.device} — "
-            f"{_REMEDY}")
+            f"int8 prepared weight {pos} is "
+            f"{[(g.shape, str(g.wmat.device)) for g in got]}, the conv "
+            f"takes {[(r, str(d)) for r, d in want]} (one per device of a "
+            f"model mesh that splits it) — {_REMEDY} and model mesh")
     _STATE.wpos = pos + 1
     return w
+
+
+def stream_chunks(run: Callable[[torch.Tensor], torch.Tensor],
+                  chunks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``[run(c) for c in chunks]``, the I3D chunks of one forward
+    (``i3d_chunk``), as JAX's ``nn.scan`` over them, which traces ``run``
+    once. Under dynamic int8 every chunk runs the same eligible convs
+    against the same prepared weights: those the first chunk took from
+    the prepared list (which then advances once) or prepared itself; each
+    chunk's K6 takes the max of its own chunk, as the quantize inside
+    JAX's scan body. A chunk that runs another count of eligible convs
+    raises. Static int8 and
+    calibration raise, naming ``i3d_chunk``: their scales are one per conv
+    call of a forward that is not streamed (JAX's static forward fails
+    here with 'int8 act_scales exhausted', its calibration step with an
+    UnexpectedTracerError)."""
+    why = (f"i3d_chunk streams this batch in {len(chunks)} chunks, and "
+           f"static int8 scales are one per conv call of a forward that is "
+           f"not streamed (JAX fails here too)")
+    if getattr(_STATE, "calib", None) is not None:
+        raise RuntimeError(f"int8 calibration cannot run here: {why}; "
+                           f"calibrate on a batch that i3d_chunk does not "
+                           f"split, or set i3d_chunk=0")
+    if not getattr(_STATE, "int8", False):
+        return [run(c) for c in chunks]
+    if _STATE.scales is not None:
+        raise RuntimeError(f"static int8 cannot run here: {why}; use "
+                           f"dynamic int8 or i3d_chunk=0")
+    prepared = _STATE.weights
+    if prepared is None:
+        outer = getattr(_STATE, "wcoll", None)
+        _STATE.wcoll = first = []
+        try:
+            outs = [run(chunks[0])]
+        finally:
+            _STATE.wcoll = outer
+        if outer is not None:
+            outer.extend(first)
+    else:
+        start = _STATE.wpos
+        outs = [run(chunks[0])]
+        first = prepared[start:_STATE.wpos]
+    after = _STATE.wpos
+    _STATE.weights = first
+    try:
+        for i, c in enumerate(chunks[1:], 1):
+            _STATE.wpos = 0
+            outs.append(run(c))
+            if _STATE.wpos != len(first):
+                raise RuntimeError(
+                    f"i3d_chunk: chunk {i} ran {_STATE.wpos} eligible int8 "
+                    f"convs, the first chunk {len(first)}")
+    finally:
+        _STATE.weights, _STATE.wpos = prepared, after
+    return outs
 
 
 def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride, pads,
@@ -222,8 +303,12 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride, pads,
     spatial dim. Calibration records max |x| and returns
     ``float_conv()``; inference quantizes x (K6), takes the prepared
     weight (or quantizes and lays it out), runs the s8 product (K5) and
-    returns x's dtype."""
+    returns x's dtype. Under ``parallel/tp.tensor_parallel``, when the rule
+    splits the conv, x is quantized once on the lead device and each
+    device runs K5 on its slice of the weight; the slices are gathered on
+    the lead."""
     from jmt_tpu_torch.ops.kernels import int8_conv as kernels
+    from jmt_tpu_torch.parallel import tp
     coll = getattr(_STATE, "calib", None)
     if coll is not None:
         coll.append(torch.amax(x.detach().abs()).float())
@@ -233,13 +318,18 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride, pads,
             "int8 inference has no backward: run it under "
             "torch.inference_mode() or torch.no_grad(); training is never "
             "quantized")
-    w = _prepared_weight(weight)
-    if not w.unfold:
+    devices = tp.split_devices(weight.shape[0])
+    w = _prepared_weight(weight, devices)
+    if not (w if devices is None else w[0]).unfold:
         x_q, s_x = kernels.quantize_act(x, _next_scale())
-        return kernels.int8_conv(x_q, w, s_x, None, stride, dilation, pads,
-                                 x.dtype)
-    # a stem on the card: K6 unfolds x for K5 (kernels.Unfold)
-    u = kernels.unfold_geometry(w.shape, x.shape, stride, dilation, pads)
-    x_q, s_x = kernels.quantize_act(x, _next_scale(), u)
-    return kernels.int8_conv(x_q, w, s_x, None, u.stride, u.dilation, u.pads,
-                             x.dtype)
+        geom = (stride, dilation, pads)
+    else:  # a stem on the card: K6 unfolds x for K5 (kernels.Unfold)
+        u = kernels.unfold_geometry(weight.shape, x.shape, stride, dilation,
+                                    pads)
+        x_q, s_x = kernels.quantize_act(x, _next_scale(), u)
+        geom = (u.stride, u.dilation, u.pads)
+    if devices is None:
+        return kernels.int8_conv(x_q, w, s_x, None, *geom, x.dtype)
+    return tp.gather([kernels.int8_conv(
+        x_q.to(d), wi, s_x.to(d) if isinstance(s_x, torch.Tensor) else s_x,
+        None, *geom, x.dtype) for d, wi in zip(devices, w)])

@@ -19,7 +19,12 @@ single controller does:
   whole;
 * the hand-written kernels run on the lead device on whole operands (K1
   in the preprocessing, K3 the fused inception module, K2 the attention
-  core, which has no weights), as GSPMD replicates a custom call.
+  core, which has no weights), as GSPMD replicates a custom call;
+* an int8 conv (``ops/quant.py``) that the rule splits quantizes x once
+  on the lead (K6: one per-tensor scale, as JAX's replicated quantize),
+  and each device runs K5 on its slice of the weight, prepared per slice;
+  K5's exact s32 sums and per-channel dequantize make the gathered slices
+  the whole conv's columns bit for bit.
 
 The model lives on the lead device; each forward copies the other
 devices' weight slices to them (no copy where a device is the lead, as
@@ -107,29 +112,42 @@ def sharded_calls() -> int:
     return _CALLS["n"]
 
 
+def split_devices(out_dim: int) -> Optional[List[torch.device]]:
+    """The mesh's devices, lead first, when a layer of ``out_dim`` output
+    channels splits under the active ``tensor_parallel``; else None."""
+    active = getattr(_ACTIVE, "mesh", None)
+    if active is None:
+        return None
+    devices, min_dim = active
+    return devices if _eligible(out_dim, len(devices), min_dim) else None
+
+
+def gather(outs: Sequence[torch.Tensor], dim: int = 1) -> torch.Tensor:
+    """Output-channel slices, slice i from device i, concatenated on the
+    lead device (the first slice's); counts one split layer."""
+    lead = outs[0].device
+    _CALLS["n"] += 1
+    return torch.cat([o.to(lead) for o in outs], dim=dim)
+
+
 def split_output(fn, x: torch.Tensor, weight: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, dim: int = 1
                  ) -> torch.Tensor:
     """``fn(x, weight[, bias])``, whose output channels (``dim`` of the
     result) are ``weight``'s dim 0: under ``tensor_parallel`` and for a
     weight the rule splits, slice i on device i, gathered on the lead."""
-    active = getattr(_ACTIVE, "mesh", None)
     args = () if bias is None else (bias,)
-    if active is None:
+    devices = split_devices(weight.shape[0])
+    if devices is None:
         return fn(x, weight, *args)
-    devices, min_dim = active
     n = len(devices)
-    if not _eligible(weight.shape[0], n, min_dim):
-        return fn(x, weight, *args)
-    lead = devices[0]
     ws = weight.chunk(n, 0)
     bs = bias.chunk(n, 0) if bias is not None else (None,) * n
     outs = []
     for dev, w, b in zip(devices, ws, bs):
         extra = () if b is None else (b.to(dev),)
-        outs.append(fn(x.to(dev), w.to(dev), *extra).to(lead))
-    _CALLS["n"] += 1
-    return torch.cat(outs, dim=dim)
+        outs.append(fn(x.to(dev), w.to(dev), *extra))
+    return gather(outs, dim)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,

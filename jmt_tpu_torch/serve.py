@@ -35,11 +35,16 @@ under ``torch.inference_mode()``.
   prepared weights are a snapshot, and ``predict`` raises if a parameter
   or buffer changed in place since (its ``_version``). ``calibrate``
   measures static scales on a request and captures the graphs again.
+  With I3D chunk streaming (``i3d_chunk``) dynamic int8 runs every chunk
+  on the same prepared weights (``quant.stream_chunks``); static int8
+  refuses, at construction or ``calibrate``, a bucket that the chunk
+  splits, as JAX's server fails there.
 * **Tensor parallelism** (``model_mesh``, ``parallel/tp.py``): the
   output channels of the large conv and dense layers split over a list of
   devices (one card may appear more than once), the rest on the lead
   device; a TP server runs eagerly, with no CUDA graph (one graph cannot
-  span several devices).
+  span several devices). In int8 a split conv's weight is prepared once
+  per device slice, and calibration's float convs split too.
 * ``StreamingSession``: per-video stitched, clipped and smoothed V/A as
   eval windows arrive; ``measure_latency``: request p50/p90 per bucket.
 
@@ -240,6 +245,8 @@ class InferenceServer:
         server."""
         self.graphs: Dict[int, BucketGraph] = {}
         self.int8_weights = None
+        if self.int8 == "static":
+            self._refuse_static_chunks()
         if self.int8:
             example = self._example(self.buckets[0])
             self.int8_weights = quant.collect_int8_weights(
@@ -249,6 +256,22 @@ class InferenceServer:
             for b in self.buckets:
                 self.graphs[b] = BucketGraph(self, b)
         self._captured_at = self._addresses()
+
+    def _refuse_static_chunks(self) -> None:
+        """Static int8 serves no bucket that I3D chunk streaming splits
+        (``ops/quant.stream_chunks``; JAX's server fails there too, with
+        'int8 act_scales exhausted')."""
+        backbones = getattr(self.model, "backbones", None)
+        for b in self.buckets:
+            if backbones is not None and \
+                    backbones.i3d_chunks(b * self.seq) > 1:
+                raise RuntimeError(
+                    f"static int8 cannot serve bucket {b}: i3d_chunk="
+                    f"{backbones.i3d_chunk} streams its {b * self.seq} clips "
+                    f"in chunks, and static scales are one per conv call "
+                    f"of a forward that is not streamed (JAX's server "
+                    f"fails here too); serve dynamic int8, buckets the "
+                    f"chunk does not split, or i3d_chunk=0")
 
     # ------------------------------------------------------------------
     def _tensors(self):
@@ -287,10 +310,12 @@ class InferenceServer:
         capture the bucket graphs again. Values beyond the calibrated
         range clip: calibrate on data that covers the serving
         distribution. Returns the scales (pass them as ``int8_scales`` to
-        skip this)."""
+        skip this). Raises, as JAX's server fails, where I3D chunk
+        streaming splits a bucket or the request."""
+        self._refuse_static_chunks()
         self.int8_scales = calibration_scales(
             self.model, clips, audio, wavlm, self.wavlm_frontend,
-            self.device, self.use_wavlm)
+            self.device, self.use_wavlm, self.model_mesh)
         self.int8 = "static"
         self._capture()
         return self.int8_scales
@@ -430,11 +455,13 @@ def experiment_model(exp_dir: str, weights: str = "auto", device=None):
 def calibration_scales(model, clips: np.ndarray, audio: np.ndarray,
                        wavlm: Optional[np.ndarray] = None,
                        frontend: Optional[WavLMFrontend] = None,
-                       device=None, use_wavlm: Optional[bool] = None
+                       device=None, use_wavlm: Optional[bool] = None,
+                       model_mesh: Optional[Sequence] = None
                        ) -> List[float]:
     """Static int8 activation scales of ``model`` from one request at its
     own batch size: ``train.loops.calibration_forward`` (what
-    ``make_calibration_step`` runs) on the device, then
+    ``make_calibration_step`` runs) on the device (``model_mesh``: its
+    float convs split over that mesh, led by ``device``), then
     ``act_scales_from_maxes``. Without ``wavlm`` a model with a wavLM path
     takes the frontend's features."""
     dev = resolve_device(device)
@@ -452,7 +479,9 @@ def calibration_scales(model, clips: np.ndarray, audio: np.ndarray,
         else:
             raise ValueError("the model has a wavLM path: pass wavlm, or "
                              "a WavLMFrontend")
-    return quant.act_scales_from_maxes(calibration_forward(model, arrays))
+    with tp.tensor_parallel(model_mesh):
+        maxes = calibration_forward(model, arrays)
+    return quant.act_scales_from_maxes(maxes)
 
 
 class StreamingSession:
@@ -662,7 +691,8 @@ def main(argv=None) -> int:
         req = _calibration_request(16, 112, AUDIO_SAMPLES, wavlm_dim)
         int8, scales = "static", calibration_scales(
             model, *req, frontend=frontend,
-            device=args.device if mesh is None else mesh[0])
+            device=args.device if mesh is None else mesh[0],
+            model_mesh=mesh)
     server = InferenceServer(model, buckets=buckets, wavlm_frontend=frontend,
                              device=args.device, int8=int8,
                              int8_scales=scales, model_mesh=mesh)

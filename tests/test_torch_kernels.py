@@ -1429,6 +1429,9 @@ INT8_FAMILIES = {
                          ((1, 1), (0, 1), (0, 1)), 1),
     "stem_fold_main": ((1, 3, 14, 12, 12), (16, 3, 7, 5, 5), 1, None, 1),
     "stem_fold_row": ((1, 3, 14, 12), (16, 3, 7, 5), 1, None, 1),
+    # the I3D's own stem at i3d_input_size = the clip size (native 112)
+    "i3d_stem_native": ((2, 3, 8, 16, 16), (64, 3, 7, 7, 7), (1, 2, 2),
+                        ((3, 3), (2, 3), (2, 3)), 1),
     "resnet_3x3_s2": ((2, 64, 13, 9), (32, 64, 3, 3), 2,
                       ((1, 1), (1, 1)), 1),
     "resnet_1x1_s2": ((2, 64, 13, 9), (32, 64, 1, 1), 2, None, 1),
@@ -1781,6 +1784,8 @@ def test_int8_graph_prepares_no_weight_on_card(cuda_device):
 INT8_STEMS = {
     "i3d_stem_fold_main": ((1, 3, 14, 12, 12), (16, 3, 7, 5, 5), 1, None, 1),
     "stem_fold_row_conv2d": ((1, 3, 14, 12), (16, 3, 7, 5), 1, None, 1),
+    "i3d_stem_native": ((2, 3, 8, 16, 16), (64, 3, 7, 7, 7), (1, 2, 2),
+                        ((3, 3), (2, 3), (2, 3)), 1),
     "r2p1d_stem_s2_pad3": ((2, 3, 6, 20, 22), (45, 3, 1, 7, 7), (1, 2, 2),
                            ((0, 0), (3, 3), (3, 3)), 1),
     "c4_dilated_asym": ((2, 4, 9, 17), (8, 4, 3, 6), (1, 3),
