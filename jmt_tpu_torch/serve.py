@@ -45,6 +45,14 @@ under ``torch.inference_mode()``.
   device; a TP server runs eagerly, with no CUDA graph (one graph cannot
   span several devices). In int8 a split conv's weight is prepared once
   per device slice, and calibration's float convs split too.
+* **Profiler ranges** (``torch.profiler.record_function``, host events on
+  the device trace's clock): ``serve.predict`` around each call, and
+  inside it, for each top-bucket chunk in turn, ``serve.stage``
+  (conversion, checks, padding and the copies into the bucket's buffers,
+  or the frontend's features), ``serve.guard`` (the version and address
+  checks), ``serve.replay`` (``serve.forward`` on the eager path) and
+  ``serve.readback`` (the wait for the card and the copy out). None runs
+  inside a capture.
 * ``StreamingSession``: per-video stitched, clipped and smoothed V/A as
   eval windows arrive; ``measure_latency``: request p50/p90 per bucket.
 
@@ -73,6 +81,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from jmt_tpu_torch.device import resolve_device
 from jmt_tpu_torch.ops import quant
@@ -365,23 +374,50 @@ class InferenceServer:
 
     def _run(self, b: int, arrays: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Bucket ``b``'s forward of what ``_stage`` returned: its graph's
-        replay on the card, the eager forward on the CPU."""
-        if self.int8_weights is not None and \
-                self._versions() != self._versions_at:
-            raise RuntimeError(
-                "the model's parameters or buffers changed in place after "
-                "its int8 weights were prepared; the prepared weights would "
-                "be stale: build a new InferenceServer")
+        """Bucket ``b``'s forward of what ``_stage`` returned, after the
+        checks that the weights are still those captured or prepared
+        (``serve.guard``): its graph's replay on the card
+        (``serve.replay``), the eager forward elsewhere
+        (``serve.forward``)."""
         graph = self.graphs.get(b)
+        with record_function("serve.guard"):
+            if self.int8_weights is not None and \
+                    self._versions() != self._versions_at:
+                raise RuntimeError(
+                    "the model's parameters or buffers changed in place "
+                    "after its int8 weights were prepared; the prepared "
+                    "weights would be stale: build a new InferenceServer")
+            if graph is not None and self._addresses() != self._captured_at:
+                raise RuntimeError(
+                    "the model's parameters or buffers moved after its CUDA "
+                    "graphs were captured (model.to(...)?); the graphs would "
+                    "read freed memory: build a new InferenceServer")
         if graph is None:
-            return self.forward(arrays)
-        if self._addresses() != self._captured_at:
-            raise RuntimeError(
-                "the model's parameters or buffers moved after its CUDA "
-                "graphs were captured (model.to(...)?); the graphs would "
-                "read freed memory: build a new InferenceServer")
-        return graph.replay()
+            with record_function("serve.forward"):
+                return self.forward(arrays)
+        with record_function("serve.replay"):
+            return graph.replay()
+
+    def _stage_rows(self, i: int, clips: np.ndarray, audio: np.ndarray,
+                    wavlm: Optional[np.ndarray]
+                    ) -> Tuple[int, int, Dict[str, torch.Tensor]]:
+        """Rows ``i`` to ``i`` + the top bucket of a checked request,
+        staged in the smallest bucket that holds them: (bucket, rows,
+        ``_stage``'s arrays)."""
+        rows = slice(i, i + self.buckets[-1])
+        clips, audio = clips[rows], audio[rows]
+        wavlm = None if wavlm is None else wavlm[rows]
+        n = clips.shape[0]
+        b = next(x for x in self.buckets if x >= n)
+        return b, n, self._stage(b, clips, audio, wavlm)
+
+    def _answer(self, b: int, n: int, arrays: Dict[str, torch.Tensor]
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """The first ``n`` rows of bucket ``b``'s forward on the host
+        (``serve.readback``: the wait for the card and the copy out)."""
+        v, a = self._run(b, arrays)
+        with record_function("serve.readback"):
+            return v[:n].float().cpu().numpy(), a[:n].float().cpu().numpy()
 
     def predict(self, clips: np.ndarray, audio: np.ndarray,
                 wavlm: Optional[np.ndarray] = None
@@ -389,23 +425,27 @@ class InferenceServer:
         """clips (B,S,8,H,W,3) uint8, audio (B,S,A) f32, wavlm (B,S,dim)
         or None with a frontend attached. Pads B up to the smallest
         bucket; splits oversize requests into top-bucket chunks. Returns
-        (vouts, aouts) as (B,S) float32."""
-        clips = np.asarray(clips, np.uint8)
-        audio = np.asarray(audio, np.float32)
-        wavlm = None if wavlm is None else np.asarray(wavlm, np.float32)
-        self._check(clips, audio, wavlm)
-        n = clips.shape[0]
-        top = self.buckets[-1]
-        if n > top:
-            parts = [self.predict(clips[i:i + top], audio[i:i + top],
-                                  None if wavlm is None
-                                  else wavlm[i:i + top])
-                     for i in range(0, n, top)]
+        (vouts, aouts) as (B,S) float32. Runs inside the profiler ranges
+        that the module docstring lists; the first chunk's ``serve.stage``
+        also converts and checks the whole request."""
+        with record_function("serve.predict"):
+            with record_function("serve.stage"):
+                clips = np.asarray(clips, np.uint8)
+                audio = np.asarray(audio, np.float32)
+                wavlm = None if wavlm is None else np.asarray(wavlm,
+                                                              np.float32)
+                self._check(clips, audio, wavlm)
+                staged = self._stage_rows(0, clips, audio, wavlm)
+            parts = [self._answer(*staged)]
+            for i in range(self.buckets[-1], clips.shape[0],
+                           self.buckets[-1]):
+                with record_function("serve.stage"):
+                    staged = self._stage_rows(i, clips, audio, wavlm)
+                parts.append(self._answer(*staged))
+            if len(parts) == 1:
+                return parts[0]
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
-        b = next(x for x in self.buckets if x >= n)
-        v, a = self._run(b, self._stage(b, clips, audio, wavlm))
-        return v[:n].float().cpu().numpy(), a[:n].float().cpu().numpy()
 
     # ------------------------------------------------------------------
     @classmethod

@@ -185,10 +185,15 @@ def make_train_step(model, more_vision_augm: bool = False,
     backward, ``state.optimizer.step()``. The colour factors and the heavy
     augmentations' parameters are drawn from ``generator`` (torch's
     default one when None) unless given, in that order.
-    The three phases run inside ``torch.profiler`` ranges
-    ``train_step.forward`` / ``.backward`` / ``.optimizer`` (a profile
-    attributes the device time of the forward and optimizer kernels to
-    them; the backward's run on autograd's own thread).
+    The step runs inside the ``torch.profiler`` range ``train_step``,
+    divided into four phases, one after another:
+    ``train_step.prepare`` (the state check, the arrays on the device,
+    the draws, ``model.train()``), ``train_step.forward`` (preprocessing,
+    forward and loss), ``train_step.backward`` (``zero_grad`` and the
+    backward) and ``train_step.optimizer``. The backward's kernels are
+    launched from autograd's own thread, but inside the main thread's
+    ``train_step.backward`` interval, so each phase owns the device's
+    idle time within its interval.
 
     Under a process group of more than one rank, ``arrays`` are this
     rank's rows of the global batch (the same count on every rank), the
@@ -204,46 +209,50 @@ def make_train_step(model, more_vision_augm: bool = False,
                    generator: Optional[torch.Generator] = None,
                    color_factors=None, vision_augment=None,
                    audio_augment=None):
-        _check_state(model, state)
-        x = _on(arrays, dev)
-        b, s = x["labels_v"].shape[:2]
-        ranks = mesh.proc_info()[1]
-        if ranks > 1:
-            color_factors, vision_augment, audio_augment = _global_draws(
-                model, b, s, x["clips"].shape[2], generator, dev,
-                more_vision_augm, more_audio_augm, color_factors,
-                vision_augment, audio_augment)
-        elif (color_factors is None and not more_vision_augm
-                and len(model.vision_backbones) > 0):
-            color_factors = sample_color_factors(generator, b * s,
-                                                 device=dev)
-        model.train()
-        with global_batch_statistics(ranks > 1):
-            with record_function("train_step.forward"):
-                spec, clips = preprocess(model, x, color_factors,
-                                         more_vision_augm, more_audio_augm,
-                                         vision_augment, audio_augment,
-                                         generator)
-                vouts, aouts = model(spec, clips, x.get("wavlm"))
-                rw = x.get("row_weight")
-                w = None if rw is None else rw[:, None].to(
-                    vouts.dtype).expand(vouts.shape)
-                g = mesh.all_gather_rows
-                wg = None if w is None else g(w).reshape(-1)
-                loss = (ccc_loss(g(vouts).reshape(-1),
-                                 g(x["labels_v"]).reshape(-1), weight=wg)
-                        + ccc_loss(g(aouts).reshape(-1),
-                                   g(x["labels_a"]).reshape(-1), weight=wg))
-            state.optimizer.zero_grad(set_to_none=True)
-            with record_function("train_step.backward"):
-                loss.backward()
-        with record_function("train_step.optimizer"):
-            if ranks > 1:
-                mesh.average_gradients(
-                    p for grp in state.optimizer.param_groups
-                    for p in grp["params"])
-            state.optimizer.step()
-        return loss.detach(), vouts.detach(), aouts.detach()
+        with record_function("train_step"):
+            with record_function("train_step.prepare"):
+                _check_state(model, state)
+                x = _on(arrays, dev)
+                b, s = x["labels_v"].shape[:2]
+                ranks = mesh.proc_info()[1]
+                if ranks > 1:
+                    color_factors, vision_augment, audio_augment = \
+                        _global_draws(model, b, s, x["clips"].shape[2],
+                                      generator, dev, more_vision_augm,
+                                      more_audio_augm, color_factors,
+                                      vision_augment, audio_augment)
+                elif (color_factors is None and not more_vision_augm
+                        and len(model.vision_backbones) > 0):
+                    color_factors = sample_color_factors(generator, b * s,
+                                                         device=dev)
+                model.train()
+            with global_batch_statistics(ranks > 1):
+                with record_function("train_step.forward"):
+                    spec, clips = preprocess(model, x, color_factors,
+                                             more_vision_augm,
+                                             more_audio_augm, vision_augment,
+                                             audio_augment, generator)
+                    vouts, aouts = model(spec, clips, x.get("wavlm"))
+                    rw = x.get("row_weight")
+                    w = None if rw is None else rw[:, None].to(
+                        vouts.dtype).expand(vouts.shape)
+                    g = mesh.all_gather_rows
+                    wg = None if w is None else g(w).reshape(-1)
+                    loss = (ccc_loss(g(vouts).reshape(-1),
+                                     g(x["labels_v"]).reshape(-1), weight=wg)
+                            + ccc_loss(g(aouts).reshape(-1),
+                                       g(x["labels_a"]).reshape(-1),
+                                       weight=wg))
+                with record_function("train_step.backward"):
+                    state.optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+            with record_function("train_step.optimizer"):
+                if ranks > 1:
+                    mesh.average_gradients(
+                        p for grp in state.optimizer.param_groups
+                        for p in grp["params"])
+                state.optimizer.step()
+            return loss.detach(), vouts.detach(), aouts.detach()
 
     return train_step
 
