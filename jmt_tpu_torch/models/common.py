@@ -22,6 +22,16 @@ def cast(x: Optional[torch.Tensor], dtype: Optional[torch.dtype]
     return x if x is None or dtype is None else x.to(dtype)
 
 
+def pad_channels(t: torch.Tensor, dim: int, size: int,
+                 value: float = 0.0) -> torch.Tensor:
+    """``t`` with ``value`` appended along ``dim`` up to ``size`` entries
+    (``t`` itself when it has as many)."""
+    extra = size - t.shape[dim]
+    if extra <= 0:
+        return t
+    return F.pad(t, [0, 0] * (t.ndim - 1 - dim) + [0, extra], value=value)
+
+
 class Linear(nn.Module):
     """nn.Linear equivalent, weight (out, in), cast at use to ``dtype``
     (its output features split over devices under
@@ -142,8 +152,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 class ConvNd(nn.Module):
     """Conv (1-, 2- or 3-D by kernel rank), weight (O, I, *k) as in torch,
     bias-free unless ``bias``, cast at use to ``dtype``, run by
-    ``ops/conv.conv_nd`` (int8 under an int8 context). A bias is added
-    after the conv, in ``dtype``, as the JAX modules add theirs."""
+    ``ops/conv.conv_nd`` (int8 under an int8 context; channels aligned as
+    it says). A bias is added after the conv, in ``dtype``, as the JAX
+    modules add theirs."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel, stride=1, padding=0,
                  dtype: Optional[torch.dtype] = None, bias: bool = False):
@@ -157,10 +168,13 @@ class ConvNd(nn.Module):
             else tuple(padding)
         self.pads = tuple((p, p) for p in pad)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, width: Optional[int] = None
+                ) -> torch.Tensor:
+        """width: output channels to compute, those past the weight's
+        zero (``conv_nd``'s)."""
         from jmt_tpu_torch.ops.conv import conv_nd  # ops.conv imports cast
         y = conv_nd(cast(x, self.dtype), cast(self.weight, self.dtype),
-                    self.stride, self.pads)
+                    self.stride, self.pads, width=width)
         if self.bias is None:
             return y
         return y + cast(self.bias, self.dtype).view(-1, *[1] * (y.ndim - 2))

@@ -27,10 +27,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from jmt_tpu_torch.models.common import ConvNd, cast, remat
+from jmt_tpu_torch.models.common import ConvNd, cast, pad_channels, remat
 from jmt_tpu_torch.models.tcn import TemporalConvNet
-from jmt_tpu_torch.ops.conv import (avg_pool, conv3d_stem_upsample2x,
-                                    conv_nd, max_pool_same, tf_same_pads)
+from jmt_tpu_torch.ops.conv import (aligned_width, avg_pool,
+                                    conv3d_stem_upsample2x, conv_nd,
+                                    max_pool_same, tf_same_pads)
 from jmt_tpu_torch.ops.inception import BN_EPS, fold_inception_weights
 from jmt_tpu_torch.ops.kernels import inception as inception_kernel
 from jmt_tpu_torch.ops.kernels.inception import (inception_module_fused,
@@ -73,7 +74,8 @@ class Unit3D(nn.Module):
                              f"{self.stride}")
         t_pad = tf_same_pads((x.shape[2],), (self.kernel[0],), (1,))[0]
         return self.epilogue(conv3d_stem_upsample2x(
-            x, self.conv3d.weight, t_pad, compute_dtype=self.dtype))
+            x, self.conv3d.weight, t_pad, compute_dtype=self.dtype,
+            channels=aligned_width(x.shape[1], self.bn)))
 
 
 class InceptionModule(nn.Module):
@@ -219,7 +221,11 @@ class InceptionI3d(nn.Module):
         """stem_upsample2x: x is the half-resolution clip, and the stem is
         the exact fold of (2x bilinear upsample o conv)."""
         stem = self.Conv3d_1a_7x7
-        h = stem.upsampled2x(x) if stem_upsample2x else self._stage(stem, x)
+        if stem_upsample2x:
+            h = stem.upsampled2x(x)
+        else:   # the clip's colours aligned (ops/conv.aligned_width)
+            h = self._stage(stem, pad_channels(
+                x, 1, aligned_width(x.shape[1], stem.bn)))
         h = h.contiguous(memory_format=CHANNELS_LAST)
         for kind, arg in self._plan:
             h = max_pool_same(h, *arg) if kind == "pool" else \

@@ -14,7 +14,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from jmt_tpu_torch.models.common import ConvNd
+from jmt_tpu_torch.models.common import ConvNd, pad_channels
+from jmt_tpu_torch.ops.conv import aligned_width
 from jmt_tpu_torch.ops.norm import TorchBatchNorm
 
 
@@ -58,6 +59,8 @@ class ResNet18(nn.Module):
             setattr(self, f"layer{li}", nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the 1-channel spectrogram aligned (ops/conv.aligned_width)
+        x = pad_channels(x, 1, aligned_width(x.shape[1], self.bn1))
         h = F.relu(self.bn1(self.conv1(x)))
         h = F.max_pool2d(h, 3, 2, 1)
         h = self.layer4(self.layer3(self.layer2(self.layer1(h))))

@@ -11,7 +11,11 @@ The conv builders: ``Conv2Plus1D`` (spatial 1x3x3, BN, ReLU, temporal
 3x1x1; arch ``r2plus1d``), a 3x3x3 conv (``r3d``) and a 1x3x3 conv
 (``mc3`` after layer1), each with its downsample stride. The stem is
 ``R2Plus1dStem``'s factorized pair for ``r2plus1d`` and the 3x7x7
-``BasicStem`` otherwise. The JAX stem's space-to-depth rewrite
+``BasicStem`` otherwise. The factorized pairs' mid planes (45, 144, 230,
+460, 921) and the stems' 3-colour input run aligned to multiples of 32
+under running-statistics BN (``AlignedPair``, ``BasicStem``;
+``ops/conv.py``'s note), so that cuDNN takes its bf16 tensor-core
+engines. The JAX stem's space-to-depth rewrite
 (``conv3d_s2d_hw``) was a TPU lane-utilisation trick; a plain conv3d
 computes the same function.
 
@@ -33,7 +37,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from jmt_tpu_torch.models.common import ConvNd, remat
+from jmt_tpu_torch.models.common import ConvNd, pad_channels, remat
+from jmt_tpu_torch.ops.conv import aligned_width
 from jmt_tpu_torch.ops.norm import TorchBatchNorm
 
 
@@ -41,7 +46,34 @@ def _midplanes(inp: int, out: int) -> int:
     return (inp * out * 3 * 3 * 3) // (inp * 3 * 3 + 3 * out)
 
 
-class Conv2Plus1D(nn.Sequential):
+class AlignedPair(nn.Sequential):
+    """conv -> BN -> ReLU -> conv, then any further modules, channels
+    aligned (``ops/conv.py``'s note) while BN uses its running
+    statistics: a narrow input (the stem's 3 colours) zero-padded, the
+    mid planes computed zero-padded to a multiple of ``ALIGN``, kept zero
+    by BN and ReLU and met by the second conv with zero weights. One
+    padded activation, no copy; parameters and keys as they are."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        first, bn, relu, second, *rest = self
+        x = pad_channels(x, 1, aligned_width(x.shape[1], bn))
+        h = first(x, aligned_width(first.weight.shape[0], bn))
+        h = second(relu(bn(h)))
+        for module in rest:
+            h = module(h)
+        return h
+
+
+class BasicStem(nn.Sequential):
+    """conv -> BN -> ReLU, its 3-colour input aligned as ``AlignedPair``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn, relu = self
+        return relu(bn(conv(pad_channels(x, 1, aligned_width(x.shape[1],
+                                                             bn)))))
+
+
+class Conv2Plus1D(AlignedPair):
     """Spatial 1x3x3 -> BN -> ReLU -> temporal 3x1x1."""
 
     def __init__(self, in_planes: int, out_planes: int, midplanes: int,
@@ -101,12 +133,12 @@ class BasicBlock3d(nn.Module):
 
 def _stem(arch: str, dtype: Optional[torch.dtype]) -> nn.Sequential:
     if arch == "r2plus1d":
-        return nn.Sequential(
+        return AlignedPair(
             ConvNd(3, 45, (1, 7, 7), (1, 2, 2), (0, 3, 3), dtype=dtype),
             TorchBatchNorm(45, dtype=dtype), nn.ReLU(),
             ConvNd(45, 64, (3, 1, 1), 1, (1, 0, 0), dtype=dtype),
             TorchBatchNorm(64, dtype=dtype), nn.ReLU())
-    return nn.Sequential(   # BasicStem
+    return BasicStem(
         ConvNd(3, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3), dtype=dtype),
         TorchBatchNorm(64, dtype=dtype), nn.ReLU())
 

@@ -22,6 +22,25 @@ in torch's NC... layout:
   weight is ``eligible``, else ``F.conv1d/2d/3d``; either way its output
   channels split over devices under ``parallel/tp.tensor_parallel``.
 
+Channel alignment: cuDNN's heuristics run a bf16 conv of the backbones on
+an f32 FMA engine (``sm80_xmma_fprop_implicit_gemm_indexed_f32f32``,
+some 40 times below the card's bf16 peak) unless its channel counts are
+multiples of ``ALIGN`` (32); at 8 and 16 the engine stays the f32 one
+(measured on the H100, ``PERF.md``). A conv whose BN uses its running
+statistics, outside an int8 context, computes with zero channels up to
+the next multiple (``aligned_width``): its owner pads a narrow input (a
+clip's 3 colours, a spectrogram's 1: the stems, ResNet-18's ``conv1``;
+the folded I3D stem moves its 5 W taps into channels first), and odd mid
+planes (R(2+1)D's 45, 144, 230, 460, 921) run padded from their producer
+through BN and ReLU into their consumer (``models/video_resnet
+.AlignedPair``), which ``conv_nd`` meets with zero weights (``width``,
+and x wider than the weight). Eval BN pads its vectors to weight 0, bias
+0, mean 0, variance 1, so the planes stay zero. The numbers are the same
+but for the order of the f32 additions: zero operands add exact zeros.
+Train-mode BN keeps every shape (padded running statistics would need
+updating), as does an int8 context (its int8 path and prepared weights
+keep theirs). ``conv_counts`` counts the convs run and those aligned.
+
 The JAX package's space-to-depth stem (``conv3d_s2d_hw``) was a TPU
 lane-packing trick: a plain conv3d computes the same function, int8
 included (the zero taps and pads change neither the maxima nor the sums).
@@ -30,19 +49,49 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from jmt_tpu_torch.models.common import cast
+from jmt_tpu_torch.models.common import cast, pad_channels
 from jmt_tpu_torch.ops import quant
 from jmt_tpu_torch.parallel import tp
 
 Pads = Tuple[Tuple[int, int], ...]
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+ALIGN = 32
+# convs run by conv_nd in this process, and their operations by the
+# unpadded shapes: all, and those that ran aligned
+_COUNTS = {"convs": 0, "flops": 0, "aligned_convs": 0, "aligned_flops": 0}
+
+
+def aligned_width(c: int, bn: nn.Module) -> int:
+    """The channels a conv followed by ``bn`` computes ``c`` of them with:
+    ``c`` rounded up to a multiple of ``ALIGN`` while ``bn`` uses its
+    running statistics outside an int8 context, else ``c``."""
+    if bn.training or quant.quant_enabled():
+        return c
+    return -(-c // ALIGN) * ALIGN
+
+
+def conv_counts() -> Dict[str, int]:
+    """``conv_nd``'s convs so far and their operations (2 x MACs by the
+    unpadded channels): ``convs``, ``flops``, and of them
+    ``aligned_convs``, ``aligned_flops``."""
+    return dict(_COUNTS)
+
+
+def aligned_share(before: Dict[str, int], after: Dict[str, int]
+                  ) -> Tuple[int, float]:
+    """Between two ``conv_counts``: the convs that ran aligned, and their
+    share of the operations of all convs run (0 when none ran)."""
+    ran = {k: after[k] - before[k] for k in after}
+    return (ran["aligned_convs"],
+            ran["aligned_flops"] / ran["flops"] if ran["flops"] else 0.0)
 
 
 def tf_same_pads(sizes: Sequence[int], kernel: Sequence[int],
@@ -62,12 +111,22 @@ def pad_arg(pads: Pads) -> list:
 
 
 def conv_nd(x: torch.Tensor, weight: torch.Tensor, stride=1,
-            pads: Optional[Pads] = None, dilation=1) -> torch.Tensor:
+            pads: Optional[Pads] = None, dilation=1,
+            width: Optional[int] = None) -> torch.Tensor:
     """x (N, I, *spatial), weight (O, I, *k), both in the compute dtype;
     pads: (lo, hi) per spatial dim, or None. Under an int8 context an
     eligible weight takes the int8 path (in calibration: records max |x|
     and computes as below); otherwise ``F.conv*``, with an asymmetric pad
-    applied first."""
+    applied first.
+
+    Aligned channels (the module's note): x may carry zero channels past
+    I, which meet zero weights, and ``width`` > O asks for zero output
+    channels up to it."""
+    channels = tuple(weight.shape[:2])
+    weight = pad_channels(weight, 1, x.shape[1])
+    if width is not None:
+        weight = pad_channels(weight, 0, width)
+
     def conv(xs, w):
         xp, padding = xs, 0
         if pads is not None:
@@ -81,8 +140,17 @@ def conv_nd(x: torch.Tensor, weight: torch.Tensor, stride=1,
         return tp.split_output(conv, x, weight)
 
     if quant.quant_enabled() and quant.eligible(weight.shape):
-        return quant.int8_conv(x, weight, stride, pads, dilation, float_conv)
-    return float_conv()
+        y = quant.int8_conv(x, weight, stride, pads, dilation, float_conv)
+    else:
+        y = float_conv()
+    flops = (2 * y.shape[0] * math.prod(y.shape[2:]) * math.prod(channels)
+             * math.prod(weight.shape[2:]))
+    _COUNTS["convs"] += 1
+    _COUNTS["flops"] += flops
+    if tuple(weight.shape[:2]) != channels:
+        _COUNTS["aligned_convs"] += 1
+        _COUNTS["aligned_flops"] += flops
+    return y
 
 
 def max_pool_same(x: torch.Tensor, kernel: Sequence[int],
@@ -136,15 +204,33 @@ def _fold_constants(device: torch.device):
     return m, alphas
 
 
+def _w_taps_in_channels(xz: torch.Tensor, t_pad: Tuple[int, int]
+                        ) -> torch.Tensor:
+    """xz (N, C, T, H, W + 4) -> (N, 5C rounded up to a multiple of
+    ``ALIGN``, t0 + T + t1, H, W), channels-last: channel 5c + d holds xz's
+    column w + d, so that a (kt, 5, 5) conv over xz is a (kt, 5, 1) conv
+    over it; T and the extra channels zero."""
+    n, c, t, h, w4 = xz.shape
+    t0, t1 = t_pad
+    buf = xz.new_zeros(n, t0 + t + t1, h, w4 - 4, -(-5 * c // ALIGN) * ALIGN)
+    buf[:, t0:t0 + t, :, :, :5 * c].view(n, t, h, w4 - 4, c, 5).copy_(
+        xz.unfold(4, 5, 1).permute(0, 2, 3, 4, 1, 5))
+    return buf.permute(0, 4, 1, 2, 3)
+
+
 def conv3d_stem_upsample2x(x: torch.Tensor, weight: torch.Tensor,
                            t_pad: Tuple[int, int],
-                           compute_dtype: Optional[torch.dtype] = None
-                           ) -> torch.Tensor:
+                           compute_dtype: Optional[torch.dtype] = None,
+                           channels: Optional[int] = None) -> torch.Tensor:
     """``conv7x7x7_tf_same_stride_(1,2,2)(upsample2x_hw(x))`` without the 2x
     tensor: one stride-1 7 x 5 x 5 conv plus border corrections.
 
     x (N, Ci, T, H, W); weight (Co, Ci, kt, 7, 7), the unfolded stem
-    weight; t_pad: TF-SAME pads of T (stride 1). Returns (N, Co, T', H, W).
+    weight; t_pad: TF-SAME pads of T (stride 1); channels (aligned,
+    ``aligned_width``; > Ci): the main conv runs on the 5 W taps moved
+    into channels (``_w_taps_in_channels``), a (kt, 5, 1) conv, and the
+    border corrections' inputs are zero-padded to ``channels`` in their
+    last copy. Returns (N, Co, T', H, W).
     """
     co, ci, kt, kh, kw = weight.shape
     if (kh, kw) != (7, 7):
@@ -161,13 +247,19 @@ def conv3d_stem_upsample2x(x: torch.Tensor, weight: torch.Tensor,
     xr = F.pad(x, (1, 1, 1, 1, 0, 0), mode="replicate")
     xz = F.pad(xr, (1, 1, 1, 1))
     t0, t1 = t_pad
-    out = conv_nd(F.pad(xz, (0, 0, 0, 0, t0, t1)), k5)
+    if channels is None or channels == ci:
+        cpad = ()
+        out = conv_nd(F.pad(xz, (0, 0, 0, 0, t0, t1)), k5)
+    else:
+        cpad = (0, channels - ci)
+        out = conv_nd(_w_taps_in_channels(xz, t_pad), k5.permute(
+            0, 1, 4, 2, 3).reshape(co, 5 * ci, kt, 5, 1))
 
     alphas = {0: alpha["lo"], h - 2: alpha["hi1"], h - 1: alpha["hi0"]}
     walphas = {0: alpha["lo"], w - 2: alpha["hi1"], w - 1: alpha["hi0"]}
     border_row = {0: 0, h - 2: h - 1, h - 1: h - 1}
     border_col = {0: 0, w - 2: w - 1, w - 1: w - 1}
-    tpad = (t0, t1)
+    tpad = (t0, t1) + cpad
     # subtract the folded conv's phantom terms on border rows and columns
     for jh, av in alphas.items():
         krow = cast(torch.einsum("h,bw,oithw->oitb", av, m, wf),

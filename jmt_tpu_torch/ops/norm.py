@@ -41,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from jmt_tpu_torch.models.common import pad_channels
 
 _RECOMPUTE = threading.local()
 # process-wide, not per thread: the backward, and a remat recompute in it,
@@ -124,16 +125,31 @@ class TorchBatchNorm(nn.Module):
         return y.to(self.dtype) if self.dtype is not None else y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x of this BN's channels, or in eval mode of more: an aligned
+        conv's zero channels past them (``ops/conv.py``'s note), which
+        take weight 0, bias 0, mean 0 and variance 1 and stay zero."""
         if self.training and _GLOBAL_STATS["on"]:
             return self._global_forward(x)
         mean, var = self.running_mean, self.running_var
-        if self.training and getattr(_RECOMPUTE, "on", False):
+        weight, bias = self.weight, self.bias
+        width = x.shape[1]
+        if width != weight.shape[0]:
+            if self.training:
+                raise ValueError(
+                    f"BN of {weight.shape[0]} channels in train mode got "
+                    f"{width}: only running statistics take aligned "
+                    f"channels")
+            mean, var = (pad_channels(mean, 0, width),
+                         pad_channels(var, 0, width, 1.0))
+            weight, bias = (pad_channels(weight, 0, width),
+                            pad_channels(bias, 0, width))
+        elif self.training and getattr(_RECOMPUTE, "on", False):
             # the same call on scratch buffers: the same batch statistics
             # and kernel as the first forward, no update
             mean, var = mean.clone(), var.clone()
         elif self.training:
             self.num_batches_tracked.add_(1)
-        y = F.batch_norm(x.float(), mean, var,
-                         self.weight, self.bias, training=self.training,
-                         momentum=self.momentum, eps=self.eps)
+        y = F.batch_norm(x.float(), mean, var, weight, bias,
+                         training=self.training, momentum=self.momentum,
+                         eps=self.eps)
         return y.to(self.dtype) if self.dtype is not None else y

@@ -10,7 +10,8 @@ single controller does:
 * the rule is JAX's: a conv or dense weight whose output-channel axis
   (dim 0 in torch layout) is at least ``min_dim`` (128) and divisible by
   the mesh is split on it (``tp_shardings``); every other weight stays
-  whole;
+  whole. A conv that computes aligned channels (``ops/conv.py``'s note)
+  is split on its padded count, zero channels included;
 * under ``tensor_parallel(mesh)`` each such layer (``ops/conv.conv_nd``
   and ``linear``, the funnels that every backbone conv and every dense
   layer of the port goes through) computes its i-th output-channel slice

@@ -166,9 +166,13 @@ class BucketGraph:
     eval forward and its static outputs. ``seconds``: warm-up and
     capture; ``launches``: each kernel's launches inside the capture;
     ``weight_preparations``: int8 weights quantized and laid out inside
-    it (0 when the server prepared them)."""
+    it (0 when the server prepared them); ``aligned_convs`` and
+    ``aligned_flop_share``: the captured forward's convs that ran with
+    their channels aligned (``ops/conv.py``'s note), and their share of
+    its convs' operations by the unpadded shapes."""
 
     def __init__(self, server: "InferenceServer", b: int):
+        from jmt_tpu_torch.ops.conv import aligned_share, conv_counts
         from jmt_tpu_torch.ops.kernels import launch_counts
         from jmt_tpu_torch.ops.kernels.int8_conv import prepare_weight
         t0 = time.perf_counter()
@@ -184,9 +188,12 @@ class BucketGraph:
             self.graph = torch.cuda.CUDAGraph()
             before = launch_counts()
             prepared = prepare_weight.calls
+            convs = conv_counts()
             with torch.cuda.graph(self.graph):
                 self.outputs = server.forward(self.inputs)
             after = launch_counts()
+            self.aligned_convs, self.aligned_flop_share = aligned_share(
+                convs, conv_counts())
             self.weight_preparations = prepare_weight.calls - prepared
             torch.cuda.synchronize(dev)
         self.launches = {k: after[k] - before[k] for k in after}
